@@ -1,0 +1,42 @@
+"""slslam_tpu_torch: the batch replay engine of slslam_tpu in PyTorch + CUDA.
+
+A port of the device-resident batch engine (``slslam_tpu.engine.batch``)
+to PyTorch, with the window-BA evaluate and the index reductions written
+by hand in CUDA C++ for Hopper (``csrc/``, bound through ctypes in
+``ops/kernels.py``).  The JAX package stays the reference; this package
+imports ``torch`` and numpy and never ``jax``.  It reuses the reference's
+jax-free modules by import: ``slslam_tpu.config``, ``slslam_tpu.hostgeom``,
+``slslam_tpu.sim`` and ``slslam_tpu.evalio``.
+
+Every public function takes tensors on an explicit device; constructors
+take an explicit ``device`` and ``dtype``.  Nothing falls back to the CPU
+when CUDA is missing: :func:`resolve_device` raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it names CUDA and this
+    machine has no usable CUDA device."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but "
+                           "torch.cuda.is_available() is False")
+    return dev
+
+
+def resolve_dtype(dtype) -> torch.dtype:
+    """'float32' / 'float64' / torch dtype -> torch dtype (floats only)."""
+    if isinstance(dtype, torch.dtype):
+        dt = dtype
+    else:
+        dt = {"float32": torch.float32, "float64": torch.float64}.get(
+            str(dtype))
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported compute dtype {dtype!r}")
+    return dt
