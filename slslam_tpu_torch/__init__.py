@@ -4,9 +4,9 @@ A port of the device-resident batch engine (``slslam_tpu.engine.batch``)
 to PyTorch, with the window-BA evaluate and the index reductions written
 by hand in CUDA C++ for Hopper (``csrc/``, bound through ctypes in
 ``ops/kernels.py``).  The JAX package stays the reference; this package
-imports ``torch`` and numpy and never ``jax``.  It reuses the reference's
-jax-free modules by import: ``slslam_tpu.config``, ``slslam_tpu.hostgeom``,
-``slslam_tpu.sim`` and ``slslam_tpu.evalio``.
+imports ``torch`` and numpy, never ``jax`` and nothing of ``slslam_tpu``:
+what it needs of the reference's jax-free modules it keeps as cited copies
+(``config``, ``hostgeom``, ``sim``, ``evalio``).
 
 Every public function takes tensors on an explicit device; constructors
 take an explicit ``device`` and ``dtype``.  Nothing falls back to the CPU

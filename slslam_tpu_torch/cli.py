@@ -1,13 +1,14 @@
 """Command-line driver of the PyTorch port.
 
     python -m slslam_tpu_torch.cli sim --frames 120 --noise-px 0.5 \\
-        --out /tmp/run --device cuda
+        --out /tmp/run
 
 The ``sim`` command of ``slslam_tpu.cli --engine batch`` with the same
-flags: renders the house world along the wave trajectory (slslam_tpu.sim,
-render seed = --rseed), replays it through the port's ``BatchSlam`` and
-writes the trajectory in the reference's text format
-(slslam_tpu.evalio.writers) plus ``stats.json``.  The global refine
+flags: renders the house world along the wave trajectory (the port's copy
+of the simulation, ``slslam_tpu_torch.sim``, render seed = --rseed),
+replays it through the port's ``BatchSlam`` and writes the trajectory in
+the reference's text format plus ``stats.json``.  ``--device`` defaults to
+``cuda``; ``--device cpu`` runs the plain twins.  The global refine
 (``--refine`` of the JAX CLI) is not ported yet.
 """
 
@@ -32,12 +33,10 @@ def _ate(traj, poses_gt):
 def cmd_sim(args):
     import torch
 
-    from slslam_tpu.config import SlamConfig
-    from slslam_tpu.evalio.writers import trajectory_rows, write_trajectory
-    from slslam_tpu.sim import (StereoLineRenderer, house_segments,
-                                wave_trajectory)
-
+    from .config import SlamConfig
     from .engine.batch import BatchSlam
+    from .evalio.writers import trajectory_rows, write_trajectory
+    from .sim import StereoLineRenderer, house_segments, wave_trajectory
 
     cfg = dataclasses.replace(
         SlamConfig(), ba_window_size=args.ba_window_size,
@@ -91,8 +90,8 @@ def main(argv=None):
                    help="seed of the renderer and of the RANSAC generator")
     p.add_argument("--ba-window-size", type=int, default=10)
     p.add_argument("--max-num-iter", type=int, default=10)
-    p.add_argument("--device", required=True,
-                   help="torch device, e.g. cuda or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the twins)")
     p.add_argument("--dtype", default="float32",
                    choices=("float32", "float64"))
     p.add_argument("--out", default=None, help="output directory")

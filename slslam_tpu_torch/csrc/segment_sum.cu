@@ -1,72 +1,171 @@
-// K1: segment_sum -- per-segment row sums (O, D) x idx (O,) -> (P, D).
+// K1: segment_sum -- per-segment row sums (O, D) x idx (O,) -> (P, D), and
+// the segment plan that groups the rows by index.
 //
 // Replaces the TPU kernel segment_sum_pallas / _seg_sum_kernel
 // (slslam_tpu/ops/pallas_kernels.py:30-81), which builds a one-hot tile in
 // VMEM and multiplies it on the MXU over a sequential (P-tiles, O-chunks)
-// grid.  Rows whose index is >= P are padding and are dropped.
+// grid.  Rows whose index is outside [0, P) are padding and are dropped.
 //
 // What bounds it on the H100: nothing the card is short of.  The BA path
-// calls it at O = 162..1600 rows, D = 1..42 lanes, P = 4..81 segments: at
-// most ~270 KB read, a few microseconds of work.  It is launch-bound.
+// calls it at O = 162..1600 rows, D = 1..42 lanes, P = 4..1620 segments:
+// at most ~270 KB read, a few microseconds of work.  It is launch-bound;
+// what the design can cut is the serial work inside each block.
 //
-// Design: one block per (segment, 32-column tile), 32 x 8 threads.  Thread
-// (x, y) walks the rows o = y, y + 8, ... and sums column x of the rows
-// whose index is p; the 8 partials are then added in a fixed order.  The
-// index reads are warp-uniform (one broadcast per row), value reads are
-// coalesced along the columns, no atomics are needed and the result is
-// deterministic.  Every output element is written, so the caller need not
-// zero the output.  The kernel allocates nothing.
+// The segment plan (seg_plan) is a stable counting sort of the rows by
+// index: perm (O,) lists the rows of segment 0, then segment 1, ..., each
+// in observation order, then the dropped rows; offsets (P + 1,) holds where
+// each segment starts, and offsets[P] counts the kept rows.  One block per
+// segment p (plus one block for the dropped rows): it counts the rows with
+// a smaller index (__syncthreads_count over tiles of the index array) and
+// writes its own rows in order (warp ballots, a prefix over the warps of
+// the tile).  Integer work only, no atomics, no data-dependent order.  A
+// BA solve builds its plans once and reuses them in every LM iteration.
+//
+// Design of the sum: one block per (segment, column tile).  A block of
+// kThreads threads holds D' = min(D, kThreads) columns and R = kThreads / D'
+// row slots, so at D = 1 all threads take rows.  Slot r sums the segment's
+// rows r, r + R, ... (from the plan when one is given; otherwise the block
+// compacts its own rows from each tile of the index array with ballots, in
+// observation order), and the R partials meet in a fixed tree in shared
+// memory.  The result is the same from run to run.  Every output element
+// is written, so the caller need not zero the output.  Nothing is
+// allocated.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kCols = 32;
-constexpr int kRowGroups = 8;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
-template <typename T>
-__global__ void seg_sum_kernel(const T* __restrict__ vals,
-                               const int* __restrict__ idx,
-                               T* __restrict__ out, int O, int D) {
-  __shared__ T part[kRowGroups][kCols];
-  const int p = blockIdx.x;
-  const int d = blockIdx.y * kCols + threadIdx.x;
-  T acc = T(0);
-  if (d < D) {
-    for (int o = threadIdx.y; o < O; o += kRowGroups) {
-      if (idx[o] == p) acc += vals[static_cast<size_t>(o) * D + d];
-    }
-  }
-  part[threadIdx.y][threadIdx.x] = acc;
+__device__ __forceinline__ int plan_key(const int* __restrict__ idx, int o,
+                                        int P) {
+  const int k = idx[o];
+  return (k >= 0 && k < P) ? k : P;
+}
+
+// Stable in-order compaction of the rows o in [base, base + kThreads) with
+// key == p into rows[0, n); returns n.  Every thread must call it.
+__device__ __forceinline__ int compact_tile(const int* __restrict__ idx,
+                                            int base, int O, int P, int p,
+                                            int* rows, int* warp_n) {
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int o = base + t;
+  const bool hit = o < O && plan_key(idx, o, P) == p;
+  const unsigned mask = __ballot_sync(0xffffffffu, hit);
+  if (lane == 0) warp_n[warp] = __popc(mask);
   __syncthreads();
-  if (threadIdx.y == 0 && d < D) {
-    T s = part[0][threadIdx.x];
-    for (int y = 1; y < kRowGroups; ++y) s += part[y][threadIdx.x];
-    out[static_cast<size_t>(p) * D + d] = s;
+  int before = 0;
+  int total = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) before += warp_n[w];
+    total += warp_n[w];
+  }
+  if (hit) rows[before + __popc(mask & ((1u << lane) - 1u))] = o;
+  __syncthreads();
+  return total;
+}
+
+__global__ void __launch_bounds__(kThreads) seg_plan_kernel(
+    const int* __restrict__ idx, int O, int P, int* __restrict__ perm,
+    int* __restrict__ offsets) {
+  __shared__ int rows[kThreads];
+  __shared__ int warp_n[kWarps];
+  const int p = blockIdx.x;  // P: the dropped rows
+  int start = 0;
+  for (int base = 0; base < O; base += kThreads) {
+    const int o = base + threadIdx.x;
+    start += __syncthreads_count(o < O && plan_key(idx, o, P) < p);
+  }
+  if (threadIdx.x == 0) offsets[p] = start;
+  int done = 0;
+  for (int base = 0; base < O; base += kThreads) {
+    const int n = compact_tile(idx, base, O, P, p, rows, warp_n);
+    if (threadIdx.x < n) perm[start + done + threadIdx.x] = rows[threadIdx.x];
+    done += n;
+    __syncthreads();
   }
 }
 
 template <typename T>
-int launch(const T* vals, const int* idx, T* out, int O, int D, int P,
-           cudaStream_t stream) {
-  dim3 grid(P, (D + kCols - 1) / kCols);
-  dim3 block(kCols, kRowGroups);
-  seg_sum_kernel<T><<<grid, block, 0, stream>>>(vals, idx, out, O, D);
+__global__ void __launch_bounds__(kThreads) seg_sum_kernel(
+    const T* __restrict__ vals, const int* __restrict__ idx,
+    const int* __restrict__ perm, const int* __restrict__ offsets,
+    T* __restrict__ out, int O, int D, int P, int cols) {
+  __shared__ T part[kThreads];
+  __shared__ int rows[kThreads];
+  __shared__ int warp_n[kWarps];
+  const int p = blockIdx.x;
+  const int t = threadIdx.x;
+  const int R = kThreads / cols;
+  const int j = t % cols;
+  const int r = t / cols;
+  const int d = blockIdx.y * cols + j;
+  const bool active = r < R && d < D;
+  T acc = T(0);
+  if (perm != nullptr) {
+    const int* seg = perm + offsets[p];
+    const int n = offsets[p + 1] - offsets[p];
+    if (active)
+      for (int k = r; k < n; k += R)
+        acc += vals[static_cast<size_t>(seg[k]) * D + d];
+  } else {
+    for (int base = 0; base < O; base += kThreads) {
+      const int n = compact_tile(idx, base, O, P, p, rows, warp_n);
+      if (active)
+        for (int k = r; k < n; k += R)
+          acc += vals[static_cast<size_t>(rows[k]) * D + d];
+      __syncthreads();
+    }
+  }
+  part[t] = acc;
+  __syncthreads();
+  // fixed tree over the R row slots of each column
+  int span = 1;
+  while (span < R) span <<= 1;
+  for (int s = span >> 1; s > 0; s >>= 1) {
+    if (r < s && r + s < R) part[t] += part[t + s * cols];
+    __syncthreads();
+  }
+  if (r == 0 && d < D) out[static_cast<size_t>(p) * D + d] = part[t];
+}
+
+template <typename T>
+int launch_sum(const void* vals, const void* idx, const void* perm,
+               const void* offsets, void* out, int O, int D, int P,
+               void* stream) {
+  const int cols = D < kThreads ? D : kThreads;
+  dim3 grid(P, (D + cols - 1) / cols);
+  seg_sum_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(vals), static_cast<const int*>(idx),
+      static_cast<const int*>(perm), static_cast<const int*>(offsets),
+      static_cast<T*>(out), O, D, P, cols);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int seg_sum_f32(const void* vals, const void* idx, void* out,
+// perm / offsets: a plan of idx (seg_plan), or both null to group the rows
+// inside the launch.  P >= 1, D >= 1.
+extern "C" int seg_sum_f32(const void* vals, const void* idx,
+                           const void* perm, const void* offsets, void* out,
                            int O, int D, int P, void* stream) {
-  return launch(static_cast<const float*>(vals), static_cast<const int*>(idx),
-                static_cast<float*>(out), O, D, P,
-                static_cast<cudaStream_t>(stream));
+  return launch_sum<float>(vals, idx, perm, offsets, out, O, D, P, stream);
 }
 
-extern "C" int seg_sum_f64(const void* vals, const void* idx, void* out,
+extern "C" int seg_sum_f64(const void* vals, const void* idx,
+                           const void* perm, const void* offsets, void* out,
                            int O, int D, int P, void* stream) {
-  return launch(static_cast<const double*>(vals),
-                static_cast<const int*>(idx), static_cast<double*>(out), O, D,
-                P, static_cast<cudaStream_t>(stream));
+  return launch_sum<double>(vals, idx, perm, offsets, out, O, D, P, stream);
+}
+
+// perm (O,) and offsets (P + 1,) of the int32 keys idx (O,).
+extern "C" int seg_plan(const void* idx, int O, int P, void* perm,
+                        void* offsets, void* stream) {
+  seg_plan_kernel<<<P + 1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(idx), O, P, static_cast<int*>(perm),
+      static_cast<int*>(offsets));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -29,9 +29,10 @@ from .. import geometry as geo
 from .. import resolve_device, resolve_dtype
 from ..ops.schur_ba import lines_gn, local_ba
 from ..ops.triangulate import triangulate_lines
+from ..config import SlamConfig, bucket_for
+from ..evalio.writers import write_trajectory
+from ..hostgeom import Pose
 from ..ops.vo_pipeline import vo_body
-from slslam_tpu.config import SlamConfig, bucket_for
-from slslam_tpu.hostgeom import Pose
 
 
 # ---------------------------------------------------------------------------
@@ -795,5 +796,4 @@ class BatchSlam:
         return collect_result(carry_to_numpy(carry), stacked, Lcap)
 
     def save_trajectory(self, result: BatchResult, path: str):
-        from slslam_tpu.evalio.writers import write_trajectory
         write_trajectory(path, result.trajectory)

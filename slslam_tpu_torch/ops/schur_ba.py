@@ -9,10 +9,12 @@ radius update, dtype-floored function and parameter tolerances).
 
 Where the JAX package runs one traced ``lax.while_loop``, this port runs a
 Python loop that reads the loop condition from the device once per
-iteration; ``lines_gn``'s ``lax.scan`` is a fixed 4-step loop.  The
-evaluate goes through ``ops/kernels.py``: on CUDA tensors the full path
-calls K2 (``fused_eval``) and the pose-only and lines-only paths reduce with
-K1 (``segment_sum``); on CPU tensors both take their plain twins.
+iteration; ``lines_gn``'s ``lax.scan`` is a fixed 4-step loop.  Every
+evaluate goes through K2 (``ops/kernels.py`` ``fused_eval``): the window BA
+through its ``full`` variant, the pose-only VO polish through ``cams``,
+lines-GN through ``lines``; lines-GN's trial cost reduces with K1
+(``segment_sum``).  Each solve builds its segment plan once and hands it to
+every LM iteration.  On CPU tensors the kernels' plain twins run.
 
 Not ported (they raise NotImplementedError): ``cam_anchor_sigmas`` and
 ``prior_edges`` (ROADMAP.md, Queue 1 open items).
@@ -24,9 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-from .kernels import fused_eval, segment_sum
-from .residuals import (lba_residual_batch, lba_residual_jac_cam_batch,
-                        lba_residual_jac_line_batch, robust_weights)
+from .kernels import ba_plan, fused_eval, segment_sum
+from .residuals import lba_residual_batch, robust_weights
 
 _MIN_DIAG = 1e-6
 _MAX_DIAG = 1e32
@@ -67,37 +68,24 @@ def _masked_cost(r, w_valid, huber_delta, robust):
 
 def _eval_system(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
                  cam_free_f, line_free_f, baseline, huber_delta, robust,
-                 line_param="orth"):
-    """Cost and all normal-equation blocks (schur_ba.py:93-176): one K2
-    launch on CUDA, its twin on CPU."""
+                 line_param="orth", plan=None):
+    """Cost and all normal-equation blocks (schur_ba.py:93-176): K2
+    ``full``."""
     return fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
                       cam_free_f, line_free_f, baseline, huber_delta,
-                      robust=robust, line_param=line_param)
+                      robust=robust, line_param=line_param, variant="full",
+                      plan=plan)
 
 
 def _eval_pose_system(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
                       cam_free_f, baseline, huber_delta, robust,
-                      line_param="orth"):
+                      line_param="orth", plan=None):
     """Camera-only normal equations, the motion-only BA case
-    (schur_ba.py:179-209).  Hcc|gc reduce in one K1 call of 42 lanes."""
-    C = cam_wt.shape[0]
-    O = obs.shape[0]
-    oc = obs_cam.long()
-    r, Jc = lba_residual_jac_cam_batch(cam_wt[oc], line_orth[obs_line.long()],
-                                       obs, baseline, line_param=line_param)
-    w_r, cost_i = robust_weights(r, huber_delta, robust)
-    zero = torch.zeros((), dtype=r.dtype, device=r.device)
-    cost = torch.sum(torch.where(w_valid > 0, cost_i, zero))
-    valid = w_valid[:, None] > 0
-    scale = w_r[:, None]
-    r = torch.where(valid, r * scale, zero)
-    Jc = torch.where(valid[..., None],
-                     Jc * scale[..., None] * cam_free_f[oc][:, None, None],
-                     zero)
-    A = torch.einsum("oki,okj->oij", Jc, Jc)
-    gc_o = torch.einsum("oki,ok->oi", Jc, r)
-    out = segment_sum(torch.cat([A.reshape(O, 36), gc_o], dim=1), obs_cam, C)
-    return cost, out[:, :36].reshape(C, 6, 6), out[:, 36:]
+    (schur_ba.py:179-209): K2 ``cams``, which is ``full`` with every line
+    fixed and never builds the line blocks."""
+    return fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
+                      cam_free_f, None, baseline, huber_delta, robust=robust,
+                      line_param=line_param, variant="cams", plan=plan)
 
 
 def _cholesky_solve_batched(H, rhs):
@@ -197,45 +185,34 @@ def lines_gn(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
 
     Every line is an independent 4x4 block; a step that does not strictly
     reduce the line's own robust cost (margin 1e-4) is rejected per line.
-    Hll|gl|cost reduce in one K1 call of 21 lanes; the trial cost in one
-    of 1 lane."""
-    L = line_orth.shape[0]
+    Hll|gl|cost come from K2 ``lines``; the trial cost reduces in one K1
+    call of 1 lane over the same line plan."""
+    C, L = cam_wt.shape[0], line_orth.shape[0]
     dtype, dev = cam_wt.dtype, cam_wt.device
+    cam_wt = cam_wt.contiguous()
     w_valid = obs_valid.to(dtype)
     line_free_f = line_free.to(dtype)
+    obs_cam = obs_cam.to(torch.int32).contiguous()
+    obs_line = obs_line.to(torch.int32).contiguous()
+    plan = ba_plan(obs_cam, obs_line, w_valid, C, L, "lines")
     ol = obs_line.long()
-    idx = obs_line.to(torch.int32)
     cw = cam_wt[obs_cam.long()]
-    O = obs.shape[0]
-    zero = torch.zeros((), dtype=dtype, device=dev)
     eye4 = torch.eye(4, dtype=dtype, device=dev)
-
-    def eval_lines(lo):
-        r, Jl = lba_residual_jac_line_batch(cw, lo[ol], obs, baseline,
-                                            line_param=line_param)
-        w_r, cost_i = robust_weights(r, huber_delta, robust)
-        valid = w_valid[:, None] > 0
-        scale = w_r[:, None]
-        r = torch.where(valid, r * scale, zero)
-        Jl = torch.where(valid[..., None], Jl * scale[..., None]
-                         * line_free_f[ol][:, None, None], zero)
-        B = torch.einsum("oki,okj->oij", Jl, Jl)
-        gl_o = torch.einsum("oki,ok->oi", Jl, r)
-        cost_o = torch.where(w_valid > 0, cost_i, zero)
-        out = segment_sum(torch.cat([B.reshape(O, 16), gl_o, cost_o[:, None]],
-                                    dim=1), idx, L)
-        return out[:, :16].reshape(L, 4, 4), out[:, 16:20], out[:, 20]
 
     def cost_lines(lo):
         r = lba_residual_batch(cw, lo[ol], obs, baseline,
                                line_param=line_param)
         cost_o = _masked_cost(r, w_valid, huber_delta, robust)
-        return segment_sum(cost_o[:, None].contiguous(), idx, L)[:, 0]
+        return segment_sum(cost_o[:, None].contiguous(), plan.line.key, L,
+                           plan=plan.line)[:, 0]
 
     lam = torch.tensor(1e-3, dtype=dtype, device=dev)
-    lo = line_orth
+    lo = line_orth.contiguous()
     for _ in range(iters):
-        Hll, gl, cost_l = eval_lines(lo)
+        Hll, gl, cost_l = fused_eval(
+            cam_wt, lo, obs, obs_cam, obs_line, w_valid, None, line_free_f,
+            baseline, huber_delta, robust=robust, line_param=line_param,
+            variant="lines", plan=plan)
         diag_l = torch.clamp(torch.diagonal(Hll, dim1=-2, dim2=-1),
                              _MIN_DIAG, _MAX_DIAG)
         Binv = _inv4_equilibrated(Hll + lam * diag_l[..., None] * eye4)
@@ -270,6 +247,8 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
     obs_cam = obs_cam.to(torch.int32).contiguous()
     obs_line = obs_line.to(torch.int32).contiguous()
     oc, ol = obs_cam.long(), obs_line.long()
+    plan = ba_plan(obs_cam, obs_line, w_valid, cam_wt.shape[0],
+                   line_orth.shape[0], "cams" if pose_only else "full")
 
     def cost_only(cw, lo):
         r = lba_residual_batch(cw[oc], lo[ol], obs, baseline,
@@ -287,9 +266,10 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
                                                     torch.isfinite(cost))):
         lam = 1.0 / radius
         if pose_only:
-            _, Hcc, gc = _eval_pose_system(cam, line, obs, obs_cam, obs_line,
-                                           w_valid, cam_free_f, baseline,
-                                           huber_delta, robust, line_param)
+            _, Hcc, gc = _eval_pose_system(
+                cam.contiguous(), line.contiguous(), obs, obs_cam, obs_line,
+                w_valid, cam_free_f, baseline, huber_delta, robust,
+                line_param, plan)
             dc, damp_quad, g_dot_d = _solve_step_pose(Hcc, gc, lam,
                                                       cam_free_f)
             dl = torch.zeros_like(line)
@@ -297,7 +277,7 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
             _, Hcc, Hll, gc, gl, W = _eval_system(
                 cam.contiguous(), line.contiguous(), obs, obs_cam, obs_line,
                 w_valid, cam_free_f, line_free_f, baseline, huber_delta,
-                robust, line_param)
+                robust, line_param, plan)
             dc, dl, damp_quad, g_dot_d = _solve_step(
                 Hcc, Hll, gc, gl, W, lam, cam_free_f, line_free_f)
 

@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain twins on the card (opt-in).
 
 The checks of chip_smoke.py phases 1 and 2 (slslam_tpu_torch/
-kernel_checks.py, tolerances stated there), as tests.  They run only with
-SLSLAM_GPU_TESTS=1 on a machine with an NVIDIA GPU and nvcc, and skip
-otherwise.  The file imports no jax, so on a machine without it run
+kernel_checks.py, tolerances stated there), as tests: the segment plan,
+K1 with and without a plan, and every K2 variant launched twice (the two
+launches must agree bit for bit).  They run only with SLSLAM_GPU_TESTS=1
+on a machine with an NVIDIA GPU and nvcc, and skip otherwise.  The file
+imports no jax, so on a machine without it run
 
     SLSLAM_GPU_TESTS=1 python -m pytest tests/test_torch_gpu.py \\
         --noconftest -o addopts= -q
@@ -30,6 +32,13 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+def test_segment_plan_kernel_on_gpu(cuda_device):
+    before = kernels.launch_counts["segment_plan"]
+    kernel_checks.check_plans(cuda_device)
+    assert kernels.launch_counts["segment_plan"] > before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_segment_sum_kernel_on_gpu(cuda_device, dtype):
     before = kernels.launch_counts["segment_sum"]
@@ -38,8 +47,10 @@ def test_segment_sum_kernel_on_gpu(cuda_device, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("variant", kernels.VARIANTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_fused_eval_kernel_on_gpu(cuda_device, dtype):
-    before = kernels.launch_counts["fused_eval"]
-    kernel_checks.check_k2(dtype, cuda_device)
-    assert kernels.launch_counts["fused_eval"] == before + 2
+def test_fused_eval_kernel_on_gpu(cuda_device, dtype, variant):
+    key = f"fused_eval/{variant}"
+    before = kernels.launch_counts[key]
+    kernel_checks.check_k2(dtype, cuda_device, variant)
+    assert kernels.launch_counts[key] == before + 2
