@@ -18,7 +18,9 @@ Phases, each printing one JSON line:
    eager CUDA events over 50 launches (``ms``, the host's enqueue included),
    the replay of a CUDA graph of 50 captured launches (``device_ms``), the
    plain twin (``plain_ms``) and, for K1, one ``index_add_`` into a
-   pre-zeroed (P + 1, D) buffer (``library_ms``; the port never calls it);
+   pre-zeroed (P + 1, D) buffer (``library_ms``; the port never calls it).
+   The plan is timed at both of the window's shapes, the line plan and the
+   (cam, line) pair plan (``pair_plan`` in its record);
 3. slice parity in float64: 60 house frames on CUDA (kernels) and on the
    CPU (twins), fed the same Gumbel noise: identical keyframes and RANSAC
    scores, trajectories within 1e-6 m, every K2 variant launched;
@@ -194,25 +196,30 @@ def phase1(dev, rec):
             out[f"{str(dtype)[6:]}_{shape}"] = {"err": err,
                                                 "max_abs_err": max_abs}
 
-    # the plan at the main path's line plan, K1 at lines-GN's trial cost
-    O, P = kc.PLAN_SHAPES[0]
-    key = kc.plan_case(O, P, dev)
-    nbytes, ops = kc.plan_work(O, P)
-    rec["segment_plan"].update(
-        max_abs_err=float(out["plans"][str((O, P))]),
-        ms=cuda_ms(lambda: kernels.segment_plan(key, P)),
-        device_ms=graph_ms(lambda: kernels.segment_plan(key, P)),
-        plain_ms=cuda_ms(lambda: kernels.segment_plan_twin(key, P)),
-        library_ms=None)
-    rec["segment_plan"].update(zip(("bound_ms", "bound_by"),
-                                   kc.bound(nbytes, ops)))
+    # the plan at the main path's line plan and (cam, line) pair plan, K1
+    # at lines-GN's trial cost
+    for i, shape in enumerate(kc.PLAN_SHAPES[:2]):
+        O, P = shape
+        key = kc.plan_case(O, P, dev)
+        times = dict(
+            shape=[O, P], max_abs_err=float(out["plans"][str(shape)]),
+            ms=cuda_ms(lambda: kernels.segment_plan(key, P)),
+            device_ms=graph_ms(lambda: kernels.segment_plan(key, P)),
+            plain_ms=cuda_ms(lambda: kernels.segment_plan_twin(key, P)),
+            library_ms=None)
+        times.update(zip(("bound_ms", "bound_by"),
+                         kc.bound(*kc.plan_work(O, P))))
+        if i == 0:
+            rec["segment_plan"].update(times)
+        else:
+            rec["segment_plan"]["pair_plan"] = times
 
     O, D, P = kc.K1_SHAPES[0]
     vals, idx = kc.k1_case(O, D, P, torch.float32, dev)
     plan = kernels.segment_plan(idx, P)
     buf = torch.zeros((P + 1, D), dtype=vals.dtype, device=dev)
-    nbytes, ops = kc.k1_work(vals, idx, P, plan)
     rec["segment_sum"].update(
+        shape=[O, D, P],
         max_abs_err=out[f"float32_{(O, D, P, True)}"]["max_abs_err"],
         ms=cuda_ms(lambda: kernels.segment_sum(vals, idx, P, plan=plan)),
         device_ms=graph_ms(lambda: kernels.segment_sum(vals, idx, P,
@@ -220,10 +227,14 @@ def phase1(dev, rec):
         plain_ms=cuda_ms(lambda: kernels.segment_sum_twin(vals, idx, P)),
         library_ms=cuda_ms(lambda: buf.index_add_(0, idx, vals)))
     rec["segment_sum"].update(zip(("bound_ms", "bound_by"),
-                                  kc.bound(nbytes, ops)))
-    out["times_float32"] = {k: {f: rec[k][f] for f in (
-        "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
-        for k in ("segment_plan", "segment_sum")}
+                                  kc.bound(*kc.k1_work(vals, idx, P))))
+    fields = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
+    out["times_float32"] = {
+        "segment_plan": {f: rec["segment_plan"][f] for f in fields},
+        "segment_plan_pair": {f: rec["segment_plan"]["pair_plan"][f]
+                              for f in fields},
+        "segment_sum": {f: rec["segment_sum"][f] for f in fields}}
+    # without a plan the wrapper builds one first: two launches
     out["segment_sum_no_plan_ms"] = cuda_ms(
         lambda: kernels.segment_sum(vals, idx, P))
     log(out)
@@ -247,6 +258,7 @@ def phase2(dev, rec):
 
         nbytes, ops = kc.k2_work(args, variant, plan)
         rec[name].update(
+            shape=list(kc.K2_SHAPES[variant]),
             max_abs_err=max(v["max_abs_err"]
                             for v in out[f"{variant}_float32"].values()),
             ms=cuda_ms(kernel), device_ms=graph_ms(kernel),
@@ -341,12 +353,13 @@ def phase4(dev, rec):
     # CUDA modules and solver state
     eng.run(frames[:WARMUP_FRAMES])
     torch.cuda.synchronize()
-    calls = dict.fromkeys(JAC_HELPERS + ("lines_gn",), 0)
+    calls = dict.fromkeys(JAC_HELPERS + ("lines_gn", "local_ba"), 0)
     with contextlib.ExitStack() as stack:
         stack.enter_context(counting(
             (kernels, residuals), JAC_HELPERS, calls,
             when=lambda cw, *a, **k: cw.device.type == "cuda"))
-        stack.enter_context(counting((batch,), ("lines_gn",), calls))
+        stack.enter_context(counting((batch,), ("lines_gn", "local_ba"),
+                                     calls))
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         res = eng.run(frames)
@@ -362,7 +375,8 @@ def phase4(dev, rec):
            "kf_per_s": res.kf_count / wall, "ate_raw_m": ate,
            "avg_ba_iterations": res.stats["avg_num_iterations"],
            "window_lm_iterations": lm_iters, "lines_gn_calls":
-           calls["lines_gn"], "jacobian_helper_calls_cuda": jac_cuda,
+           calls["lines_gn"], "window_ba_calls": calls["local_ba"],
+           "jacobian_helper_calls_cuda": jac_cuda,
            "launches": launches}
     log(out)
     finite = all(np.all(np.isfinite(T.t)) and np.all(np.isfinite(T.R))
@@ -386,6 +400,8 @@ def phase4(dev, rec):
         raise AssertionError(f"phase 4 failed: {failed}")
     for name, n in launches.items():
         rec[name]["launches"] = n
+    # each window-BA solve builds one pair plan
+    rec["segment_plan"]["pair_plan"]["launches"] = calls["local_ba"]
 
 
 def main():

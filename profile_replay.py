@@ -27,11 +27,12 @@ instead times the window-BA kernels of the checkout at ROOT (default:
 this one): K2 ``fused_eval`` (the full evaluate, (C, L, O) = (20, 81,
 1600)) and K1 ``segment_sum`` at (O, D, P) = (1600, 21, 81) and (1600, 1,
 81) without a plan, in float32 (K2 gets its plan, built once outside the
-timing, where the checkout has one): eager CUDA events over 50 launches
-(``ms``, the host's enqueue included) and the replay of a CUDA graph of 50
-captured launches (``device_ms``).  It calls only what every version of
-the port has, so two commits compare in one call: unpack the other into a
-git-ignored directory and run parent, change, change, parent.
+timing, where the checkout has one), on the inputs of this checkout's
+``kernel_checks``: eager CUDA events over 50 launches (``ms``, the host's
+enqueue included) and the replay of a CUDA graph of 50 captured launches
+(``device_ms``).  It calls only what every version of the port has, so two
+commits compare in one call: unpack the other into a git-ignored
+directory and run parent, change, change, parent.
 """
 
 import argparse
@@ -159,69 +160,41 @@ def same_run(a, b):
                                                    b.trajectory))}
 
 
-def window_case(dev, C=20, L=81, O=1600, seed=0):
-    """fused_eval's arguments at the window shape: camera-major rows, ~20 %
-    invalid, repeated (cam, line) pairs, a fixed camera and line."""
-    import torch
-    rng = np.random.default_rng(seed)
-    cam = rng.standard_normal((C, 6)) * 0.1
-    line = rng.standard_normal((L, 4)) * 0.2
-    line[:, 3] = 0.3 + 0.5 * rng.random(L)
-    obs = rng.standard_normal((O, 8)) * 0.2
-    oc = np.repeat(np.arange(C), O // C)
-    ol = rng.integers(0, L, O)
-    ol[1::2] = ol[0::2]
-    valid = rng.random(O) < 0.8
-    obs[~valid] = 0.0
-    cfree, lfree = np.ones(C), np.ones(L)
-    cfree[0] = lfree[5] = 0.0
-
-    def f(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
-
-    def i(x):
-        return torch.as_tensor(np.asarray(x, np.int32), device=dev)
-
-    return (f(cam), f(line), f(obs), i(oc), i(ol), f(valid), f(cfree),
-            f(lfree), 0.12, 1.0 / 406.05)
-
-
-def k1_case(O, D, P, dev, seed=0):
-    import torch
-    rng = np.random.default_rng(seed)
-    vals = rng.standard_normal((O, D))
-    idx = rng.integers(0, P, O).astype(np.int32)
-    idx[::7] = P
-    return (torch.as_tensor(vals, dtype=torch.float32, device=dev),
-            torch.as_tensor(idx, device=dev))
-
-
 def kernel_times(root):
-    """Times of the window-BA kernels of the checkout at ``root``."""
-    sys.path.insert(0, root)
+    """Times of the window-BA kernels of the checkout at ``root``, on the
+    inputs of this checkout's kernel_checks (the same inputs whichever
+    checkout is timed)."""
     import torch
+    from slslam_tpu_torch import kernel_checks as kc
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    args = kc.k2_case(torch.float32, dev)
+    k1_args = {shape: kc.k1_case(*shape, torch.float32, dev)
+               for shape in ((1600, 21, 81), (1600, 1, 81))}
+    # now import the port of the checkout at root
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] == "slslam_tpu_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, root)
     from slslam_tpu_torch.ops import kernels
     if not os.path.samefile(os.path.dirname(kernels.CSRC_DIR),
                             os.path.join(root, "slslam_tpu_torch")):
         raise RuntimeError(f"imported the port from {kernels.CSRC_DIR}, "
                            f"not from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
     kernels.load_library()
     out = {"root": root, "nvidia_smi": nvidia_smi()}
-    args = window_case(dev)
     kw = {}
     if hasattr(kernels, "ba_plan"):
-        # the plan is built once per solve, as the main path does
-        kw["plan"] = kernels.ba_plan(args[3], args[4], args[5], 20, 81,
-                                     "full")
+        # the plan is built once per solve, as the main path does (PR 1's
+        # port has no plans)
+        kw["plan"] = kernels.ba_plan(args["obs_cam"], args["obs_line"],
+                                     args["w_valid"], 20, 81, "full")
     out["fused_eval_full"] = {
         "plan_reused": bool(kw),
-        "ms": cuda_ms(lambda: kernels.fused_eval(*args, **kw)),
-        "device_ms": graph_ms(lambda: kernels.fused_eval(*args, **kw))}
-    for (O, D, P) in ((1600, 21, 81), (1600, 1, 81)):
-        vals, idx = k1_case(O, D, P, dev)
+        "ms": cuda_ms(lambda: kernels.fused_eval(**args, **kw)),
+        "device_ms": graph_ms(lambda: kernels.fused_eval(**args, **kw))}
+    for (O, D, P), (vals, idx) in k1_args.items():
         out[f"segment_sum_{O}_{D}_{P}"] = {
             "ms": cuda_ms(lambda: kernels.segment_sum(vals, idx, P)),
             "device_ms": graph_ms(lambda: kernels.segment_sum(vals, idx, P))}

@@ -21,8 +21,10 @@
 //          269-291).
 //
 // What bounds it on the H100: at the window shape (C = 20, L = 81,
-// O = 1600) the full variant reads ~73 KB and writes ~165 KB (f32), and
-// does ~4 MFLOP: by bytes or FLOPs well under a microsecond.  What it takes
+// O = 1600) the full variant reads ~73 KB and writes ~165 KB (f32); its
+// function needs ~1.8 MFLOP (~1.5k per valid row, counted in closed form in
+// kernel_checks._K2_OPS), and the dual-number passes below do about five
+// times that: by bytes or FLOPs well under a microsecond.  What it takes
 // is launch latency plus the serial dependency chain of one observation's
 // residual and derivatives; one launch and no round trip through device
 // memory is the most this design can do about that.
@@ -52,7 +54,9 @@
 //   * the scalar cost (full, cams): each camera block writes its partial to
 //     a C-entry scratch and takes a ticket; the block that takes the last
 //     ticket adds the partials in camera order and resets the ticket to 0
-//     for the next launch (a counter that the wrapper keeps per device).
+//     for the next launch (a counter that the wrapper keeps per stream, and
+//     per launch inside a CUDA graph: two launches in flight at once must
+//     never share one).
 //
 // No atomics on values: the result is the same from run to run.  No
 // fast-math.  The kernel allocates nothing.
@@ -646,7 +650,8 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
 //          W (C*L*24) | partial costs (C)
 //   cams   cost (1) | Hcc (C*36) | gc (C*6) | partial costs (C)
 //   lines  Hll (L*16) | gl (L*4) | per-line cost (L)
-// tickets: one int, 0 before the launch and 0 again after it.  C, L >= 1.
+// tickets: one int, 0 before the launch and 0 again after it, used by no
+// other launch in flight.  C, L >= 1.
 extern "C" int fused_eval_f32(int variant, const void* cam, const void* line,
                               const void* obs, const void* oc, const void* ol,
                               const void* wv, const void* cfree,

@@ -18,18 +18,20 @@
 // segment p (plus one block for the dropped rows): it counts the rows with
 // a smaller index (__syncthreads_count over tiles of the index array) and
 // writes its own rows in order (warp ballots, a prefix over the warps of
-// the tile).  Integer work only, no atomics, no data-dependent order.  A
-// BA solve builds its plans once and reuses them in every LM iteration.
+// the tile).  Integer work only, no atomics, no data-dependent order.  Each
+// block reads the whole key twice, so a plan costs (P + 1) x 2 O reads of
+// the key, from L2 at the window's sizes; the (cam, line) pair plan, P =
+// C L = 1620, is the costliest.  A BA solve builds its plans once and
+// reuses them in every LM iteration.
 //
-// Design of the sum: one block per (segment, column tile).  A block of
-// kThreads threads holds D' = min(D, kThreads) columns and R = kThreads / D'
-// row slots, so at D = 1 all threads take rows.  Slot r sums the segment's
-// rows r, r + R, ... (from the plan when one is given; otherwise the block
-// compacts its own rows from each tile of the index array with ballots, in
-// observation order), and the R partials meet in a fixed tree in shared
-// memory.  The result is the same from run to run.  Every output element
-// is written, so the caller need not zero the output.  Nothing is
-// allocated.
+// Design of the sum: one block per (segment, column tile), driven by a
+// plan.  A block of kThreads threads holds D' = min(D, kThreads) columns
+// and R = kThreads / D' row slots, so at D = 1 all threads take rows.  Slot
+// r sums the segment's rows r, r + R, ... in plan order, and the R partials
+// meet in a fixed tree in shared memory.  The result is the same from run
+// to run.  Every output element is written, so the caller need not zero
+// the output.  Nothing is allocated.  A caller without a plan builds one
+// first (the wrapper does: segment_plan, then the sum).
 
 #include <cuda_runtime.h>
 
@@ -91,35 +93,21 @@ __global__ void __launch_bounds__(kThreads) seg_plan_kernel(
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) seg_sum_kernel(
-    const T* __restrict__ vals, const int* __restrict__ idx,
-    const int* __restrict__ perm, const int* __restrict__ offsets,
-    T* __restrict__ out, int O, int D, int P, int cols) {
+    const T* __restrict__ vals, const int* __restrict__ perm,
+    const int* __restrict__ offsets, T* __restrict__ out, int D, int cols) {
   __shared__ T part[kThreads];
-  __shared__ int rows[kThreads];
-  __shared__ int warp_n[kWarps];
   const int p = blockIdx.x;
   const int t = threadIdx.x;
   const int R = kThreads / cols;
   const int j = t % cols;
   const int r = t / cols;
   const int d = blockIdx.y * cols + j;
-  const bool active = r < R && d < D;
+  const int* seg = perm + offsets[p];
+  const int n = offsets[p + 1] - offsets[p];
   T acc = T(0);
-  if (perm != nullptr) {
-    const int* seg = perm + offsets[p];
-    const int n = offsets[p + 1] - offsets[p];
-    if (active)
-      for (int k = r; k < n; k += R)
-        acc += vals[static_cast<size_t>(seg[k]) * D + d];
-  } else {
-    for (int base = 0; base < O; base += kThreads) {
-      const int n = compact_tile(idx, base, O, P, p, rows, warp_n);
-      if (active)
-        for (int k = r; k < n; k += R)
-          acc += vals[static_cast<size_t>(rows[k]) * D + d];
-      __syncthreads();
-    }
-  }
+  if (r < R && d < D)
+    for (int k = r; k < n; k += R)
+      acc += vals[static_cast<size_t>(seg[k]) * D + d];
   part[t] = acc;
   __syncthreads();
   // fixed tree over the R row slots of each column
@@ -133,32 +121,30 @@ __global__ void __launch_bounds__(kThreads) seg_sum_kernel(
 }
 
 template <typename T>
-int launch_sum(const void* vals, const void* idx, const void* perm,
-               const void* offsets, void* out, int O, int D, int P,
-               void* stream) {
+int launch_sum(const void* vals, const void* perm, const void* offsets,
+               void* out, int D, int P, void* stream) {
   const int cols = D < kThreads ? D : kThreads;
   dim3 grid(P, (D + cols - 1) / cols);
   seg_sum_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(vals), static_cast<const int*>(idx),
-      static_cast<const int*>(perm), static_cast<const int*>(offsets),
-      static_cast<T*>(out), O, D, P, cols);
+      static_cast<const T*>(vals), static_cast<const int*>(perm),
+      static_cast<const int*>(offsets), static_cast<T*>(out), D, cols);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// perm / offsets: a plan of idx (seg_plan), or both null to group the rows
-// inside the launch.  P >= 1, D >= 1.
-extern "C" int seg_sum_f32(const void* vals, const void* idx,
-                           const void* perm, const void* offsets, void* out,
-                           int O, int D, int P, void* stream) {
-  return launch_sum<float>(vals, idx, perm, offsets, out, O, D, P, stream);
+// perm / offsets: the plan of the rows' indices (seg_plan) over P
+// segments.  P >= 1, D >= 1.
+extern "C" int seg_sum_f32(const void* vals, const void* perm,
+                           const void* offsets, void* out, int D, int P,
+                           void* stream) {
+  return launch_sum<float>(vals, perm, offsets, out, D, P, stream);
 }
 
-extern "C" int seg_sum_f64(const void* vals, const void* idx,
-                           const void* perm, const void* offsets, void* out,
-                           int O, int D, int P, void* stream) {
-  return launch_sum<double>(vals, idx, perm, offsets, out, O, D, P, stream);
+extern "C" int seg_sum_f64(const void* vals, const void* perm,
+                           const void* offsets, void* out, int D, int P,
+                           void* stream) {
+  return launch_sum<double>(vals, perm, offsets, out, D, P, stream);
 }
 
 // perm (O,) and offsets (P + 1,) of the int32 keys idx (O,).

@@ -201,29 +201,52 @@ def plan_work(O, P):
     return 4 * O + 4 * O + 4 * (P + 1), 0
 
 
-def k1_work(vals, idx, P, plan):
-    """(bytes, operations) of segment_sum: the kept rows' values (and
-    their plan entries, or the whole index), the (P, D) output; one add
-    per kept value."""
-    O, D = vals.shape
+def k1_work(vals, idx, P):
+    """(bytes, operations) of segment_sum with a plan: the kept rows'
+    values and plan entries, the offsets, the (P, D) output; one add per
+    kept value."""
+    D = vals.shape[1]
     e = vals.element_size()
     kept = int(((idx >= 0) & (idx < P)).sum())
-    index = 4 * kept + 4 * (P + 1) if plan is not None else 4 * O
-    return kept * D * e + index + P * D * e, kept * D
+    return kept * D * e + 4 * kept + 4 * (P + 1) + P * D * e, kept * D
 
 
-def dual_residual_flops(n_tangents):
-    """Operations of one residual on dual numbers with n tangents, counted
-    from fused_eval.cu: ~90 multiplies, ~74 adds, ~9 divides and ~13 sin /
-    cos / sqrt on duals, each costing 1 + (3, 1, 4, 1) n operations."""
-    return 321 + 393 * n_tangents
+# Operations per valid row that K2's function needs, counted in closed form
+# through _resid_soa (slslam_tpu/ops/pallas_kernels.py:141-207) and the chain
+# rule, not the kernel's own work (it carries the residual on dual numbers,
+# once per tangent pass, and full's camera blocks repeat the line pass).
+# q = (pc, dc) is the line's point and direction in the camera frame.
+_K2_OPS = {
+    "residual": 164,       # the 4 residuals' values
+    "dr_dq": 104,          # d r / d q, 4 x 6
+    "cam_cols": 314,       # d(R v)/dw = -R [v]x J_r(w) for v = cp, dv, and
+    #                        the chain for w; t's columns are d r / d pc
+    "line_cols": 307,      # the orth decode's derivatives, R times them,
+    #                        the chain
+    "huber": 15,           # the Huber weight and cost
+    "weigh_r": 4,
+    "weigh_cam": 25,       # 24 camera columns times weight x free flag
+    "weigh_line": 17,
+    "cam_out": 147 + 42 + 28,   # Hcc (21 distinct), gc, and one add per
+    #                             distinct value into its camera
+    "line_out": 70 + 28 + 14,   # Hll (10 distinct), gl, the adds
+    "line_cost": 1,             # the per-line cost's add
+    "pair_out": 168 + 24,       # W and its adds
+}
+_K2_PARTS = {
+    "full": ("residual", "dr_dq", "cam_cols", "line_cols", "huber",
+             "weigh_r", "weigh_cam", "weigh_line", "cam_out", "line_out",
+             "pair_out"),
+    "cams": ("residual", "dr_dq", "cam_cols", "huber", "weigh_r",
+             "weigh_cam", "cam_out"),
+    "lines": ("residual", "dr_dq", "line_cols", "huber", "weigh_r",
+              "weigh_line", "line_out", "line_cost"),
+}
 
 
-# operations per valid row besides the residual passes: Huber weights,
-# Jacobian scaling and the block products J^T J, J^T r
-_K2_ROW_EXTRA = {"full": 300 + 420 + 200 + 190, "cams": 300 + 420,
-                 "lines": 300 + 200}
-_K2_PASSES = {"full": (6, 4, 4), "cams": (6,), "lines": (4,)}
+def k2_row_ops(variant):
+    """Operations per valid row of K2's ``variant`` (_K2_OPS)."""
+    return sum(_K2_OPS[k] for k in _K2_PARTS[variant])
 
 
 def k2_work(args, variant, plan):
@@ -241,6 +264,4 @@ def k2_work(args, variant, plan):
             read += 4 * n + 4 * p.offsets.numel()
     write = {"full": 1 + C * 42 + L * 20 + C * L * 24, "cams": 1 + C * 42,
              "lines": L * 21}[variant] * e
-    flops = n * (sum(dual_residual_flops(k) for k in _K2_PASSES[variant])
-                 + _K2_ROW_EXTRA[variant])
-    return read + write, flops
+    return read + write, n * k2_row_ops(variant)

@@ -64,7 +64,10 @@ build_seconds = None
 ptxas_log: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_tickets: Dict[torch.device, torch.Tensor] = {}
+_tickets: Dict[tuple, torch.Tensor] = {}  # (device, stream) -> counter
+# device -> [zeroed counters for captured launches, how many are taken]
+_graph_tickets: Dict[torch.device, list] = {}
+_GRAPH_TICKETS = 4096
 
 
 def reset_launch_counts():
@@ -88,7 +91,7 @@ def _bind(libs):
     k1, k2 = libs["segment_sum"], libs["fused_eval"]
     for suf in ("f32", "f64"):
         fn = getattr(k1, f"seg_sum_{suf}")
-        fn.argtypes = [p, p, p, p, p, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, p]
         fn.restype = i
         fn = getattr(k2, f"fused_eval_{suf}")
         fn.argtypes = [i, p, p, p, p, p, p, p, p, d, d, i, i, p, p, i, p, p,
@@ -192,6 +195,20 @@ class SegmentPlan(NamedTuple):
     offsets: torch.Tensor  # (P + 1,) int32 segment starts; [P] = kept rows
 
 
+def _check_plan(name, plan, O, P, dev):
+    """Raises unless ``plan`` groups O rows into P segments on ``dev``: a
+    plan of another shape would make a kernel read out of bounds."""
+    if (tuple(plan.perm.shape) != (O,)
+            or tuple(plan.offsets.shape) != (P + 1,)):
+        raise ValueError(f"{name}: plan of {tuple(plan.perm.shape)} rows and "
+                         f"{tuple(plan.offsets.shape)} offsets, expected "
+                         f"({O},) and ({P + 1},)")
+    for k in ("perm", "offsets"):
+        if getattr(plan, k).dtype != torch.int32:
+            raise TypeError(f"{name}: plan {k} must be int32")
+    _check_cuda(name, dev, perm=plan.perm, offsets=plan.offsets)
+
+
 def segment_plan_twin(key, num_segments):
     """Plain version of the plan: a stable argsort of the key (rows outside
     [0, P) last) and the cumulative segment counts."""
@@ -269,7 +286,7 @@ def segment_sum_twin(values, idx, num_segments):
 def segment_sum(values, idx, num_segments, plan=None):
     """Per-segment sums (O, D), (O,) int32 -> (P, D); rows with idx outside
     [0, P) dropped.  ``plan``: ``segment_plan(idx, P)``, reused across
-    calls; without one the launch groups the rows itself.
+    calls; without one the wrapper builds it first (one more launch).
 
     CPU tensors take the twin; CUDA tensors launch K1 (deterministic: one
     block per segment, row slots summed in a fixed tree)."""
@@ -283,20 +300,16 @@ def segment_sum(values, idx, num_segments, plan=None):
     _check_cuda("segment_sum", values.device, values=values, idx=idx)
     O, D = values.shape
     P = num_segments
-    perm = offsets = None
-    if plan is not None:
-        if plan.perm.shape != (O,) or plan.offsets.shape != (P + 1,):
-            raise ValueError("segment_sum: the plan is of another shape")
-        _check_cuda("segment_sum", values.device, perm=plan.perm,
-                    offsets=plan.offsets)
-        perm, offsets = plan.perm.data_ptr(), plan.offsets.data_ptr()
     out = torch.empty((P, D), dtype=values.dtype, device=values.device)
     if P == 0 or D == 0:
         return out
+    if plan is None:
+        plan = segment_plan(idx, P)
+    _check_plan("segment_sum", plan, O, P, values.device)
     lib = load_library()["segment_sum"]
     fn = getattr(lib, f"seg_sum_{_suffix(values.dtype)}")
-    err = fn(values.data_ptr(), idx.data_ptr(), perm, offsets, out.data_ptr(),
-             O, D, P, _stream(values.device))
+    err = fn(values.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
+             out.data_ptr(), D, P, _stream(values.device))
     _raise_on("segment_sum", err)
     launch_counts["segment_sum"] += 1
     return out
@@ -377,12 +390,29 @@ def fused_eval_twin(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     return torch.sum(cost_o), Hcc, Hll, gc, gl, W
 
 
-def _tickets_for(dev):
-    """The one-int counter of K2's last-block combine on ``dev``: zero
-    between launches (each launch's last block resets it)."""
-    t = _tickets.get(dev)
+def _ticket_for(dev, stream):
+    """The one-int counter of K2's last-block combine for a launch on
+    ``stream``: zero before the launch, and zero again after it (the last
+    block resets it).  Launches on one stream run in order, so each stream
+    keeps its own counter, and two streams never share one.  A launch
+    captured into a CUDA graph takes a counter of its own, a slot zeroed
+    before the capture, so a replay never shares a counter with an eager
+    launch or with another graph; past _GRAPH_TICKETS captured launches
+    on a device, the graph zeroes the launch's counter itself before the
+    kernel."""
+    if torch.cuda.is_current_stream_capturing():
+        pool = _graph_tickets.get(dev)
+        if pool is not None and pool[1] < pool[0].numel():
+            pool[1] += 1
+            return pool[0][pool[1] - 1:pool[1]]
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+    if dev not in _graph_tickets:
+        _graph_tickets[dev] = [torch.zeros(_GRAPH_TICKETS, dtype=torch.int32,
+                                           device=dev), 0]
+    key = (dev, stream.cuda_stream)
+    t = _tickets.get(key)
     if t is None:
-        t = _tickets[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+        t = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
     return t
 
 
@@ -438,6 +468,10 @@ def fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     if ((variant != "lines" and rows is None)
             or (variant != "cams" and plan.line is None)):
         raise ValueError(f"fused_eval: the plan lacks what {variant!r} reads")
+    if variant != "lines":
+        _check_plan("fused_eval", rows, O, C * stride, dev)
+    if variant != "cams":
+        _check_plan("fused_eval", plan.line, O, L, dev)
 
     def ptrs(p):
         return (None, None) if p is None else (p.perm.data_ptr(),
@@ -454,11 +488,13 @@ def fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     fn = getattr(lib, f"fused_eval_{_suffix(cam_wt.dtype)}")
     cfree = None if variant == "lines" else cam_free_f.data_ptr()
     lfree = None if variant == "cams" else line_free_f.data_ptr()
+    stream = torch.cuda.current_stream(dev)
+    ticket = _ticket_for(dev, stream)
     err = fn(VARIANTS.index(variant), cam_wt.data_ptr(), line_orth.data_ptr(),
              obs.data_ptr(), obs_cam.data_ptr(), obs_line.data_ptr(),
              w_valid.data_ptr(), cfree, lfree, float(baseline), huber, C, L,
              *ptrs(rows), stride, *ptrs(plan.line), buf.data_ptr(),
-             _tickets_for(dev).data_ptr(), _stream(dev))
+             ticket.data_ptr(), ctypes.c_void_p(stream.cuda_stream))
     _raise_on("fused_eval", err)
     launch_counts[f"fused_eval/{variant}"] += 1
     parts = torch.split(buf, sizes)

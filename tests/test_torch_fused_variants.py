@@ -173,3 +173,20 @@ def test_segment_sum_with_plan_matches_numpy(O, D, P):
     v, i = torch.as_tensor(vals), torch.as_tensor(idx)
     got = kernels.segment_sum(v, i, P, plan=kernels.segment_plan(i, P))
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("perm_len,offsets_len,dtype", [
+    (1599, 82, torch.int32), (1600, 81, torch.int32),
+    (1600, 82, torch.int64)])
+def test_a_plan_of_another_shape_is_refused(perm_len, offsets_len, dtype):
+    """A kernel reads a plan's rows and offsets unchecked: the wrappers
+    refuse a plan built for another row count, segment count or dtype."""
+    plan = kernels.SegmentPlan(torch.zeros(perm_len, dtype=torch.int32),
+                               torch.zeros(perm_len, dtype=dtype),
+                               torch.zeros(offsets_len, dtype=dtype))
+    err = TypeError if dtype != torch.int32 else ValueError
+    with pytest.raises(err):
+        kernels._check_plan("segment_sum", plan, 1600, 81,
+                            torch.device("cpu"))
+    good = kernels.segment_plan(torch.zeros(1600, dtype=torch.int32), 81)
+    kernels._check_plan("segment_sum", good, 1600, 81, torch.device("cpu"))

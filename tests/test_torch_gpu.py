@@ -3,7 +3,9 @@
 The checks of chip_smoke.py phases 1 and 2 (slslam_tpu_torch/
 kernel_checks.py, tolerances stated there), as tests: the segment plan,
 K1 with and without a plan, and every K2 variant launched twice (the two
-launches must agree bit for bit).  They run only with SLSLAM_GPU_TESTS=1
+launches must agree bit for bit), then on two streams at once and from a
+CUDA graph (each launch keeps its own last-block counter, so every result
+equals an eager launch's bit for bit).  They run only with SLSLAM_GPU_TESTS=1
 on a machine with an NVIDIA GPU and nvcc, and skip otherwise.  The file
 imports no jax, so on a machine without it run
 
@@ -54,3 +56,37 @@ def test_fused_eval_kernel_on_gpu(cuda_device, dtype, variant):
     before = kernels.launch_counts[key]
     kernel_checks.check_k2(dtype, cuda_device, variant)
     assert kernels.launch_counts[key] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", kernels.VARIANTS)
+def test_fused_eval_on_two_streams_and_in_a_graph(cuda_device, variant):
+    """Launches in flight on two streams, and launches replayed from a CUDA
+    graph, each keep their own last-block counter: every result equals an
+    eager launch's bit for bit."""
+    args, plan = kernel_checks.k2_variant_case(variant, torch.float32,
+                                               cuda_device)
+
+    def run():
+        return kernels.fused_eval(**args, variant=variant, plan=plan)
+
+    ref = run()
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    outs = []
+    for _ in range(20):
+        outs.append(run())
+        with torch.cuda.stream(side):
+            outs.append(run())
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(3):
+        graph.replay()
+        outs.append(run())
+    torch.cuda.synchronize()
+    for out in outs + [captured]:
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
