@@ -10,30 +10,55 @@ Phases, each printing one JSON line:
    from ``-Xptxas -v``;
 1. K1: the segment plan against its twin (identical), and ``segment_sum``
    with and without a plan against its twin on CPU copies, float32 and
-   float64;
-2. K2 ``fused_eval``, every variant (full, cams, lines) at its main-path
-   shape against its twin, float32 and float64, a repeat launch that must
-   agree bit for bit;
-   phases 1 and 2 also time each kernel at the main path's shape in float32:
-   eager CUDA events over 50 launches (``ms``, the host's enqueue included),
-   the replay of a CUDA graph of 50 captured launches (``device_ms``), the
-   plain twin (``plain_ms``) and, for K1, one ``index_add_`` into a
-   pre-zeroed (P + 1, D) buffer (``library_ms``; the port never calls it).
-   The plan is timed at both of the window's shapes, the line plan and the
-   (cam, line) pair plan (``pair_plan`` in its record);
+   float64, at the shapes of the replay and of the refine's PCG;
+2. K2 ``fused_eval``, every variant (full, cams, lines, lm) at its
+   main-path shape against its twin, float32 and float64, a repeat launch
+   that must agree bit for bit; ``lm``'s first launch writes into memory
+   that held NaNs, and every Wb row its plan drops must be exactly zero;
+   phases 1 and 2 also time each kernel at the main path's shapes in
+   float32: eager CUDA events over 50 launches (``ms``, the host's enqueue
+   included), the replay of a CUDA graph of 50 captured launches
+   (``device_ms``), the plain twin (``plain_ms``) and one PyTorch call that
+   computes the same function, where there is one (``library_ms``; the port
+   never calls it): for K1 an ``index_add_`` into a pre-zeroed (P + 1, D)
+   buffer, for the plan a stable ``torch.sort`` plus ``torch.searchsorted``.
+   The plan is timed at each shape the main path builds (the window's line
+   and (cam, line) pair plans, the VO polish's camera plan, a refine
+   solve's camera and line plans) and K1 at lines-GN's trial cost and the
+   PCG's two camera sums; the shapes after the first are listed under
+   ``shapes`` in the kernel's record;
 3. slice parity in float64: 60 house frames on CUDA (kernels) and on the
    CPU (twins), fed the same Gumbel noise: identical keyframes and RANSAC
-   scores, trajectories within 1e-6 m, every K2 variant launched;
+   scores, trajectories within 1e-6 m, every replay variant of K2
+   launched; then the global refine of that replay (``method="cg"``, three
+   rounds) on CUDA and on the CPU from the same trajectory: the same LM
+   iterations, poses within 1e-6 m, K2 ``lm`` launched.  The one-round
+   refine, which ends at its LM cap in the slice's slow-descent valley, is
+   recorded (CUDA vs CPU, and the CPU against itself from an input
+   shifted by 1e-12 m) but not checked;
 4. the slice at full size: BatchSlam on CUDA in float32 with the bench's
    configuration, 400 frames of render seed 4, timed after a 20-frame
    warm-up: 400 keyframes, 74 landmarks, finite poses, raw ATE <= 0.55 m
    (the JAX reference: 0.484 m); K2 ``full`` launches == window-BA LM
    iterations, ``lines`` launches == lines_gn_iters x lines-GN calls, 0 <
    ``cams`` launches <= moba_max_iter x frames, K1 and the plan launched,
-   and no call of the torch.func Jacobian helpers on CUDA tensors.
+   and no call of the torch.func Jacobian helpers on CUDA tensors;
+5. the global refine at full width: ``global_refine(frames, is_kf,
+   trajectory, cfg, rounds=3)`` in float32 on phase 4's 400 keyframes: the
+   CG path, the final cost below the initial one, keyframe 0 at identity,
+   refined ATE <= 0.01 m (the JAX package's TPU record: 0.0016-0.0024 m);
+   K2 ``lm`` launches == the CG solves' LM iterations (the staged
+   lines-only solve included), K1 launches == 2 x LM iterations + PCG
+   iterations (the matvec, the right-hand side and the preconditioner),
+   two plans per solve, no torch.func Jacobian on CUDA tensors.  It prints
+   the wall, LM and PCG iterations, (O, kL, kC), raw and refined ATE and
+   the replay + refine keyframes per second of this seed.
 
-Then a line with the card's name and power limit, a line with the kernels'
-record, and the last line ``{"ok": true, "device": {...}}``.  Any failed
+The launch counts of the kernels' record are those of the two main-path
+runs, phase 4's replay and phase 5's refine, each counted from zero (the
+split is under ``launches_by_path``).  Then a line with the card's name
+and power limit, a line with the kernels' record, and the last line
+``{"ok": true, "device": {...}}``.  Any failed
 check raises: the script exits non-zero and prints no result.  Without a
 CUDA device it exits 1 at once.
 """
@@ -53,6 +78,9 @@ K1_SOURCE = "slslam_tpu_torch/csrc/segment_sum.cu"
 K2_SOURCE = "slslam_tpu_torch/csrc/fused_eval.cu"
 JAC_HELPERS = ("lba_residual_jac_batch", "lba_residual_jac_cam_batch",
                "lba_residual_jac_line_batch")
+# K2's variants in the order of csrc/fused_eval.cu's template argument
+VARIANTS = ("full", "cams", "lines", "lm")
+REFINE_ROUNDS = 3
 
 
 def log(obj):
@@ -150,7 +178,7 @@ def ptxas_summary(reports):
                 k2 = re.search(r"fused_eval_kernelI([fd])Li(\d)E", mangled)
                 k1 = re.search(r"seg_sum_kernelI([fd])E", mangled)
                 if k2:
-                    name = (f"fused_eval/{('full', 'cams', 'lines')[int(k2[2])]}"
+                    name = (f"fused_eval/{VARIANTS[int(k2[2])]}"
                             f"/{dtypes[k2[1]]}")
                 elif k1:
                     name = f"segment_sum/{dtypes[k1[1]]}"
@@ -196,48 +224,76 @@ def phase1(dev, rec):
             out[f"{str(dtype)[6:]}_{shape}"] = {"err": err,
                                                 "max_abs_err": max_abs}
 
-    # the plan at the main path's line plan and (cam, line) pair plan, K1
-    # at lines-GN's trial cost
-    for i, shape in enumerate(kc.PLAN_SHAPES[:2]):
-        O, P = shape
+    # the plan at every shape the main path builds, K1 at lines-GN's trial
+    # cost and at the PCG's two camera sums
+    roles = ("window lines", "window (cam, line) pairs", "VO polish cameras",
+             "refine cameras", "refine lines")
+    for role, (O, P) in zip(roles, kc.PLAN_SHAPES):
         key = kc.plan_case(O, P, dev)
         times = dict(
-            shape=[O, P], max_abs_err=float(out["plans"][str(shape)]),
+            shape=[O, P], role=role,
+            max_abs_err=float(out["plans"][str((O, P))]),
             ms=cuda_ms(lambda: kernels.segment_plan(key, P)),
             device_ms=graph_ms(lambda: kernels.segment_plan(key, P)),
             plain_ms=cuda_ms(lambda: kernels.segment_plan_twin(key, P)),
-            library_ms=None)
+            library_ms=cuda_ms(lambda: sort_plan(key, P)))
         times.update(zip(("bound_ms", "bound_by"),
                          kc.bound(*kc.plan_work(O, P))))
-        if i == 0:
-            rec["segment_plan"].update(times)
-        else:
-            rec["segment_plan"]["pair_plan"] = times
+        add_shape(rec["segment_plan"], times)
 
-    O, D, P = kc.K1_SHAPES[0]
-    vals, idx = kc.k1_case(O, D, P, torch.float32, dev)
-    plan = kernels.segment_plan(idx, P)
-    buf = torch.zeros((P + 1, D), dtype=vals.dtype, device=dev)
-    rec["segment_sum"].update(
-        shape=[O, D, P],
-        max_abs_err=out[f"float32_{(O, D, P, True)}"]["max_abs_err"],
-        ms=cuda_ms(lambda: kernels.segment_sum(vals, idx, P, plan=plan)),
-        device_ms=graph_ms(lambda: kernels.segment_sum(vals, idx, P,
-                                                       plan=plan)),
-        plain_ms=cuda_ms(lambda: kernels.segment_sum_twin(vals, idx, P)),
-        library_ms=cuda_ms(lambda: buf.index_add_(0, idx, vals)))
-    rec["segment_sum"].update(zip(("bound_ms", "bound_by"),
-                                  kc.bound(*kc.k1_work(vals, idx, P))))
+    k1_roles = ("lines-GN trial cost", None, None, "refine PCG matvec",
+                "refine PCG preconditioner")
+    for role, (O, D, P) in zip(k1_roles, kc.K1_SHAPES):
+        if role is None:
+            continue
+        vals, idx = kc.k1_case(O, D, P, torch.float32, dev)
+        plan = kernels.segment_plan(idx, P)
+        buf = torch.zeros((P + 1, D), dtype=vals.dtype, device=dev)
+        pad = torch.where((idx >= 0) & (idx < P), idx,
+                          torch.full_like(idx, P))
+        times = dict(
+            shape=[O, D, P], role=role,
+            max_abs_err=out[f"float32_{(O, D, P, True)}"]["max_abs_err"],
+            ms=cuda_ms(lambda: kernels.segment_sum(vals, idx, P, plan=plan)),
+            device_ms=graph_ms(lambda: kernels.segment_sum(vals, idx, P,
+                                                           plan=plan)),
+            plain_ms=cuda_ms(lambda: kernels.segment_sum_twin(vals, idx, P)),
+            library_ms=cuda_ms(lambda: buf.index_add_(0, pad, vals)))
+        times.update(zip(("bound_ms", "bound_by"),
+                         kc.bound(*kc.k1_work(vals, idx, P))))
+        add_shape(rec["segment_sum"], times)
     fields = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
     out["times_float32"] = {
-        "segment_plan": {f: rec["segment_plan"][f] for f in fields},
-        "segment_plan_pair": {f: rec["segment_plan"]["pair_plan"][f]
-                              for f in fields},
-        "segment_sum": {f: rec["segment_sum"][f] for f in fields}}
+        name: [dict(shape=r["shape"], **{f: r[f] for f in fields})
+               for r in [rec[name]] + rec[name]["shapes"]]
+        for name in ("segment_plan", "segment_sum")}
     # without a plan the wrapper builds one first: two launches
+    O, D, P = kc.K1_SHAPES[0]
+    vals, idx = kc.k1_case(O, D, P, torch.float32, dev)
     out["segment_sum_no_plan_ms"] = cuda_ms(
         lambda: kernels.segment_sum(vals, idx, P))
     log(out)
+
+
+def sort_plan(key, P):
+    """The plan's function in PyTorch calls (the yardstick, never used by
+    the port): a stable sort of the key with the dropped rows last, and
+    each segment's start by binary search."""
+    import torch
+    k = torch.where((key >= 0) & (key < P), key, torch.full_like(key, P))
+    sorted_k, perm = torch.sort(k, stable=True)
+    return perm, torch.searchsorted(
+        sorted_k, torch.arange(P + 1, dtype=k.dtype, device=k.device))
+
+
+def add_shape(record, times):
+    """The first shape timed fills the kernel's record; later ones go to
+    its ``shapes`` list."""
+    if "ms" not in record:
+        record.update(times)
+        record["shapes"] = []
+    else:
+        record["shapes"].append(times)
 
 
 def phase2(dev, rec):
@@ -257,6 +313,9 @@ def phase2(dev, rec):
             return kernels.fused_eval(**args, variant=variant, plan=plan)
 
         nbytes, ops = kc.k2_work(args, variant, plan)
+        if variant == "lm":
+            rec[name]["dropped_rows"] = int(
+                kc.dropped_rows(plan.cam).numel())
         rec[name].update(
             shape=list(kc.K2_SHAPES[variant]),
             max_abs_err=max(v["max_abs_err"]
@@ -272,14 +331,14 @@ def phase2(dev, rec):
 
 
 def variant_launches(launches):
-    from slslam_tpu_torch.ops import kernels
-    return {v: launches[f"fused_eval/{v}"] for v in kernels.VARIANTS}
+    return {v: launches[f"fused_eval/{v}"] for v in VARIANTS}
 
 
 def phase3(dev):
     import numpy as np
     import torch
     from slslam_tpu_torch.engine.batch import BatchSlam
+    from slslam_tpu_torch.engine.refine import global_refine
     from slslam_tpu_torch.ops import kernels
     from slslam_tpu_torch.ops.ransac import gumbel_noise
     cfg = bench_config("float64")
@@ -313,9 +372,56 @@ def phase3(dev):
         raise AssertionError("phase 3: ransac_score differs")
     if len(gpu.trajectory) != len(cpu.trajectory) or not dtraj <= 1e-6:
         raise AssertionError(f"phase 3: trajectories differ by {dtraj} m")
-    idle = [v for v, n in variant_launches(launches).items() if n == 0]
+    idle = [v for v, n in variant_launches(launches).items()
+            if n == 0 and v != "lm"]
     if idle:
         raise AssertionError(f"phase 3: K2 variants never launched: {idle}")
+
+    # the refine of that replay, CUDA against CPU, from one trajectory.
+    # With one round the joint solve stops at its LM cap in the slice's
+    # slow-descent valley, where the result follows rounding: recorded
+    # beside the CPU's own response to a 1e-12 m shift of the input, not
+    # checked.  Later rounds start near the basin and converge: the
+    # bench's three rounds are checked.
+    from slslam_tpu_torch.hostgeom import Pose
+
+    def refine(device, rounds, traj=gpu.trajectory):
+        t0 = time.perf_counter()
+        ref = global_refine(frames, gpu.is_kf, traj, config=cfg,
+                            rounds=rounds, method="cg", device=device)
+        return ref, time.perf_counter() - t0
+
+    def apart(a, b):
+        return max(float(np.linalg.norm(x.t - y.t))
+                   for x, y in zip(a.trajectory, b.trajectory))
+
+    shifted = [Pose(T.R, T.t + (1e-12 if k else 0.0))
+               for k, T in enumerate(gpu.trajectory)]
+    one = {d: refine(d, 1)[0] for d in (dev, "cpu")}
+    one_shifted = refine("cpu", 1, shifted)[0]
+    kernels.reset_launch_counts()
+    ref_gpu, t_gpu = refine(dev, REFINE_ROUNDS)
+    n_lm = kernels.launch_counts["fused_eval/lm"]
+    ref_cpu, t_cpu = refine("cpu", REFINE_ROUNDS)
+    dref = apart(ref_gpu, ref_cpu)
+    log({"phase": 3, "refine": f"cg, {REFINE_ROUNDS} rounds, float64",
+         "max_traj_diff_m": dref,
+         "lm_iterations_cuda": ref_gpu.iterations,
+         "lm_iterations_cpu": ref_cpu.iterations,
+         "lm_launches": n_lm, "wall_cuda_s": t_gpu, "wall_cpu_s": t_cpu,
+         "one_round": {"max_traj_diff_m": apart(one[dev], one["cpu"]),
+                       "cpu_vs_cpu_input_shifted_1e-12_m":
+                           apart(one["cpu"], one_shifted),
+                       "lm_iterations": [one[dev].iterations,
+                                         one["cpu"].iterations,
+                                         one_shifted.iterations]}})
+    if not dref <= 1e-6:
+        raise AssertionError(f"phase 3: refined trajectories differ by "
+                             f"{dref} m")
+    if ref_gpu.iterations != ref_cpu.iterations:
+        raise AssertionError("phase 3: refine LM iterations differ")
+    if n_lm == 0:
+        raise AssertionError("phase 3: the refine never launched K2 lm")
 
 
 @contextlib.contextmanager
@@ -341,7 +447,7 @@ def counting(modules, names, count, when=lambda *a, **k: True):
             setattr(module, name, orig)
 
 
-def phase4(dev, rec):
+def phase4(dev):
     import numpy as np
     import torch
     from slslam_tpu_torch.engine import batch
@@ -391,6 +497,7 @@ def phase4(dev, rec):
             by_variant["lines"] == cfg.lines_gn_iters * calls["lines_gn"],
         "0 < cams launches <= moba_max_iter x frames":
             0 < by_variant["cams"] <= cfg.moba_max_iter * len(frames),
+        "no lm launch in the replay": by_variant["lm"] == 0,
         "K1 launched": launches["segment_sum"] > 0,
         "plans built": launches["segment_plan"] > 0,
         "no torch.func Jacobians on CUDA": jac_cuda == 0,
@@ -398,10 +505,105 @@ def phase4(dev, rec):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"phase 4 failed: {failed}")
-    for name, n in launches.items():
-        rec[name]["launches"] = n
-    # each window-BA solve builds one pair plan
-    rec["segment_plan"]["pair_plan"]["launches"] = calls["local_ba"]
+    # plans by shape: each window solve builds a line and a pair plan,
+    # lines-GN a line plan, the VO polish a camera plan
+    by_role = {"window lines": calls["local_ba"],
+               "window (cam, line) pairs": calls["local_ba"]}
+    by_role["VO polish cameras"] = (launches["segment_plan"]
+                                    - 2 * calls["local_ba"]
+                                    - calls["lines_gn"])
+    return frames, poses, res, wall, launches, by_role
+
+
+def phase5(dev, rec, replay):
+    """The global refine at full width on phase 4's replay."""
+    import numpy as np
+    import torch
+    from slslam_tpu_torch.engine import refine
+    from slslam_tpu_torch.ops import kernels, residuals, schur_cg
+    frames, poses, res, replay_wall, launches4, roles4 = replay
+    cfg = bench_config("float32")
+    s = refine.build_problem_structure(frames, res.is_kf)
+    pack = schur_cg.pack_line_major(s.obs, s.ocam, s.olin, len(res.is_kf),
+                                    len(s.feat_ids))
+    solves = []
+    calls = dict.fromkeys(JAC_HELPERS + ("local_ba",), 0)
+
+    def record(orig):
+        def wrapped(*a, **k):
+            out = orig(*a, **k)
+            solves.append((int(out[2].iterations),
+                           int(out[2].cg_iterations)))
+            return out
+        return wrapped
+
+    saved = refine.global_ba_cg
+    refine.global_ba_cg = record(saved)
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(counting(
+                (kernels, residuals), JAC_HELPERS, calls,
+                when=lambda cw, *a, **k: cw.device.type == "cuda"))
+            stack.enter_context(counting((refine,), ("local_ba",), calls))
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            ref = refine.global_refine(frames, res.is_kf, res.trajectory,
+                                       config=cfg, rounds=REFINE_ROUNDS,
+                                       device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.launch_counts)
+    finally:
+        refine.global_ba_cg = saved
+    n_lm = sum(i for i, _ in solves)
+    n_cg = sum(c for _, c in solves)
+    jac_cuda = sum(calls[k] for k in JAC_HELPERS)
+    ate_raw, ate_ref = raw_ate(res.trajectory, poses), raw_ate(
+        ref.trajectory, poses)
+    T0 = ref.trajectory[0]
+    log({"phase": 5, "refine": f"cg, {REFINE_ROUNDS} rounds, float32",
+         "wall_s": wall, "solves": len(solves),
+         "lm_iterations_per_solve": [i for i, _ in solves],
+         "pcg_iterations_per_solve": [c for _, c in solves],
+         "lm_iterations": n_lm, "pcg_iterations": n_cg,
+         "refine_iterations": ref.iterations, "O": len(s.obs),
+         "kL": pack.kL, "kC": pack.kC, "fill": pack.fill,
+         "initial_cost": ref.initial_cost, "final_cost": ref.final_cost,
+         "ate_raw_m": ate_raw, "ate_refined_m": ate_ref,
+         "replay_s": replay_wall,
+         "replay_refine_kf_per_s": res.kf_count / (replay_wall + wall),
+         "jacobian_helper_calls_cuda": jac_cuda, "launches": launches})
+    checks = {
+        "the CG path": calls["local_ba"] == 0
+            and len(solves) == REFINE_ROUNDS + 1,
+        "final cost < initial cost": ref.final_cost < ref.initial_cost,
+        "keyframe 0 at identity": bool(
+            np.allclose(T0.R, np.eye(3), atol=1e-12)
+            and np.allclose(T0.t, 0.0, atol=1e-12)),
+        "refined ATE <= 0.01 m": ate_ref <= 0.01,
+        "lm launches == LM iterations":
+            launches["fused_eval/lm"] == n_lm > 0,
+        "K1 launches == 2 LM + PCG iterations":
+            launches["segment_sum"] == 2 * n_lm + n_cg > 0,
+        "two plans per solve": launches["segment_plan"] == 2 * len(solves),
+        "no torch.func Jacobians on CUDA": jac_cuda == 0,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 5 failed: {failed}")
+    by_path = {name: {"replay": launches4[name], "refine": launches[name]}
+               for name in launches}
+    for name, split in by_path.items():
+        rec[name]["launches"] = split["replay"] + split["refine"]
+        rec[name]["launches_by_path"] = split
+    plans = {**roles4, "refine cameras": len(solves),
+             "refine lines": len(solves)}
+    k1 = {"lines-GN trial cost": launches4["segment_sum"],
+          "refine PCG matvec": n_lm + n_cg,
+          "refine PCG preconditioner": n_lm}
+    for name, counts in (("segment_plan", plans), ("segment_sum", k1)):
+        for r in [rec[name]] + rec[name]["shapes"]:
+            r["launches_at_shape"] = counts[r["role"]]
 
 
 def main():
@@ -411,6 +613,8 @@ def main():
               file=sys.stderr)
         sys.exit(1)
     from slslam_tpu_torch.ops import kernels
+    if kernels.VARIANTS != VARIANTS:
+        raise AssertionError(f"K2 variants {kernels.VARIANTS} != {VARIANTS}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -425,12 +629,12 @@ def main():
                ("segment_sum", K1_SOURCE,
                 "slslam_tpu/ops/pallas_kernels.py:64"),
                *((f"fused_eval/{v}", K2_SOURCE, k2_line)
-                 for v in kernels.VARIANTS))}
+                 for v in VARIANTS))}
     smi = phase0(dev)
     phase1(dev, rec)
     phase2(dev, rec)
     phase3(dev)
-    phase4(dev, rec)
+    phase5(dev, rec, phase4(dev))
     if "jax" in sys.modules or any(m == "slslam_tpu" or
                                    m.startswith("slslam_tpu.")
                                    for m in sys.modules):

@@ -1,23 +1,29 @@
-"""Where the time of the port's replay goes, on one NVIDIA GPU.
+"""Where the time of the port's replay and refine goes, on one NVIDIA GPU.
 
-    python3 profile_replay.py          # one card, no arguments, ~7 min
+    python3 profile_replay.py          # one card, no arguments, ~8 min
 
 The replay is chip_smoke.py's phase 4: BatchSlam on CUDA in float32 with
-bench.py's configuration, 400 house frames of render seed 4.  It runs
+bench.py's configuration, 400 house frames of render seed 4; the refine is
+its phase 5, ``global_refine`` of that replay with 3 rounds (the bench's).
+It runs
 
-1. the plain replay twice, back to back: wall, process CPU time and kf/s
-   of each, the spread of the per-frame wall (``FrameStep.step``, host
-   clock) and the slowest frame, and whether the two runs agree bit for
-   bit (LM iterations, trajectory).  The first run of a process holds the
-   warm-up (lazy CUDA module loads, solver handles);
+1. the plain replay twice, back to back, each followed by the plain
+   refine: wall, process CPU time and kf/s of each replay, the spread of
+   the per-frame wall (``FrameStep.step``, host clock) and the slowest
+   frame, the refine's wall and refined ATE, and whether the two runs
+   agree bit for bit (LM iterations, trajectory).  The first run of a
+   process holds the warm-up (lazy CUDA module loads, solver handles);
 2. the replay once more with ``torch.cuda.synchronize()`` around each
    stage (triangulation, RANSAC, the pose-only LM polish, the whole VO,
-   lines-GN, the window BA): seconds and calls per stage.  The syncs
-   inflate the wall;
+   lines-GN, the window BA), then the refine with synced stages of its
+   own (the line init, K2 ``lm``'s evaluate, the PCG step, the trial
+   cost, each CG solve, the whole refine): seconds and calls per stage.
+   The syncs inflate the wall;
 3. ``torch.profiler`` over the first 30 frames: the device busy time
    (union of the CUDA activity intervals), its share of the same frames'
    wall without the profiler (the profiler inflates the wall), device
-   operations per frame and the ten device kernels that take most time.
+   operations per frame and the ten device kernels that take most time;
+4. the same over one whole refine.
 
 Each part prints one JSON line.  Without a CUDA device it exits 1.
 
@@ -47,6 +53,7 @@ from chip_smoke import (bench_config, cuda_ms, graph_ms, house, log,
                         nvidia_smi, raw_ate)
 
 PROFILED_FRAMES = 30
+REFINE_ROUNDS = 3
 
 
 @contextlib.contextmanager
@@ -90,24 +97,49 @@ def stage_times(eng, frames, sync):
               (batch, "local_ba", "window_ba"))
     acc = {label: {"s": 0.0, "calls": 0} for _, _, label in stages}
 
-    def timer(label):
-        def wrap(fn):
-            def timed(*a, **k):
-                sync()
-                t0 = time.perf_counter()
-                out = fn(*a, **k)
-                sync()
-                acc[label]["s"] += time.perf_counter() - t0
-                acc[label]["calls"] += 1
-                return out
-            return timed
-        return wrap
-
     with contextlib.ExitStack() as stack:
         for module, name, label in stages:
-            stack.enter_context(patched(module, name, timer(label)))
+            stack.enter_context(patched(module, name,
+                                        synced_timer(acc[label], sync)))
         res = eng.run(frames)
     return res, acc
+
+
+def refine_stage_times(frames, res, cfg, dev, sync):
+    """(RefineResult, {stage: {"s", "calls"}}) of the refine with
+    ``sync()`` around each of its stages."""
+    from slslam_tpu_torch.engine import refine
+    from slslam_tpu_torch.ops import schur_cg
+    stages = ((refine, "init_problem_values", "refine.line_init"),
+              (schur_cg, "_eval_system_lm", "refine.lm_evaluate"),
+              (schur_cg, "_solve_step_cg", "refine.pcg_step"),
+              (schur_cg, "_cost_lm", "refine.trial_cost"),
+              (refine, "global_ba_cg", "refine.cg_solve"),
+              (refine, "global_refine", "refine.total"))
+    acc = {label: {"s": 0.0, "calls": 0} for _, _, label in stages}
+    with contextlib.ExitStack() as stack:
+        for module, name, label in stages:
+            stack.enter_context(patched(module, name,
+                                        synced_timer(acc[label], sync)))
+        ref = refine.global_refine(frames, res.is_kf, res.trajectory,
+                                   config=cfg, rounds=REFINE_ROUNDS,
+                                   device=dev)
+    return ref, acc
+
+
+def synced_timer(slot, sync):
+    """A wrapper that adds a call's synced seconds to ``slot``."""
+    def wrap(fn):
+        def timed(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            slot["s"] += time.perf_counter() - t0
+            slot["calls"] += 1
+            return out
+        return timed
+    return wrap
 
 
 def busy_seconds(intervals):
@@ -121,7 +153,9 @@ def busy_seconds(intervals):
     return total
 
 
-def device_profile(eng, frames, sync):
+def device_profile(run, sync):
+    """Device activity of ``run()``: its plain wall, then the union of the
+    CUDA activity intervals of a profiled run and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -129,12 +163,12 @@ def device_profile(eng, frames, sync):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     sync()
     t0 = time.perf_counter()
-    eng.run(frames)
+    run()
     sync()
     plain_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
-        eng.run(frames)
+        run()
         sync()
     wall = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -145,10 +179,9 @@ def device_profile(eng, frames, sync):
         s, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (s + e.time_range.elapsed_us() * 1e-6, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    return {"frames": len(frames), "wall_s": plain_wall,
-            "profiled_wall_s": wall, "device_busy_s": busy,
-            "device_busy_share": busy / plain_wall,
-            "device_ops_per_frame": len(dev) / len(frames),
+    return {"wall_s": plain_wall, "profiled_wall_s": wall,
+            "device_busy_s": busy, "device_busy_share": busy / plain_wall,
+            "device_ops": len(dev),
             "top_device": [[name[:100], s, n] for name, (s, n) in top]}
 
 
@@ -216,6 +249,7 @@ def main():
         kernel_times(os.path.abspath(opts.kernels))
         return
     from slslam_tpu_torch.engine.batch import BatchSlam
+    from slslam_tpu_torch.engine.refine import global_refine
     from slslam_tpu_torch.ops import kernels
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -229,6 +263,10 @@ def main():
          "cpu_count": os.cpu_count(), "torch_threads": torch.get_num_threads(),
          "kernel_build_s": kernels.build_seconds})
 
+    def refine(res):
+        return global_refine(frames, res.is_kf, res.trajectory, config=cfg,
+                             rounds=REFINE_ROUNDS, device=dev)
+
     runs = []
     for rep in range(2):
         sync()
@@ -237,6 +275,11 @@ def main():
         sync()
         wall = time.perf_counter() - t0
         cpu = time.process_time() - c0
+        t0, c0 = time.perf_counter(), time.process_time()
+        ref = refine(res)
+        sync()
+        refine_wall = time.perf_counter() - t0
+        refine_cpu = time.process_time() - c0
         runs.append(res)
         q = np.quantile(walls, [0.1, 0.5, 0.9])
         log({"part": 1, "run": rep, "wall_s": wall, "cpu_s": cpu,
@@ -246,16 +289,28 @@ def main():
              "frame_ms": {"first": walls[0] * 1e3, "p10": q[0] * 1e3,
                           "p50": q[1] * 1e3, "p90": q[2] * 1e3,
                           "max": walls.max() * 1e3,
-                          "max_at": int(np.argmax(walls))}})
+                          "max_at": int(np.argmax(walls))},
+             "refine_wall_s": refine_wall, "refine_cpu_s": refine_cpu,
+             "refine_iterations": ref.iterations,
+             "ate_refined_m": raw_ate(ref.trajectory, poses),
+             "replay_refine_kf_per_s": res.kf_count / (wall + refine_wall)})
     log({"part": 1, "run0_vs_run1": same_run(runs[0], runs[1])})
 
     t0 = time.perf_counter()
     res, stages = stage_times(eng, frames, sync)
     wall = time.perf_counter() - t0
+    ref, refine_stages = refine_stage_times(frames, res, cfg, dev, sync)
     log({"part": 2, "wall_synced_s": wall, "stages": stages,
+         "refine_stages": refine_stages,
+         "refine_iterations": ref.iterations,
          "run0_vs_synced": same_run(runs[0], res)})
 
-    log({"part": 3, **device_profile(eng, frames[:PROFILED_FRAMES], sync)})
+    head = frames[:PROFILED_FRAMES]
+    prof = device_profile(lambda: eng.run(head), sync)
+    prof["device_ops_per_frame"] = prof["device_ops"] / len(head)
+    log({"part": 3, "frames": len(head), **prof})
+    log({"part": 4, "refine_rounds": REFINE_ROUNDS,
+         **device_profile(lambda: refine(res), sync)})
 
 
 if __name__ == "__main__":

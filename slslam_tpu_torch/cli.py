@@ -7,9 +7,11 @@ The ``sim`` command of ``slslam_tpu.cli --engine batch`` with the same
 flags: renders the house world along the wave trajectory (the port's copy
 of the simulation, ``slslam_tpu_torch.sim``, render seed = --rseed),
 replays it through the port's ``BatchSlam`` and writes the trajectory in
-the reference's text format plus ``stats.json``.  ``--device`` defaults to
-``cuda``; ``--device cpu`` runs the plain twins.  The global refine
-(``--refine`` of the JAX CLI) is not ported yet.
+the reference's text format plus ``stats.json``.  ``--refine`` follows the
+replay with the global bundle adjustment (``engine/refine.py``), records
+its ``refine_*`` stats and ``refine_ate_m`` and writes
+``trajectory_refined.txt``, as the JAX CLI does.  ``--device`` defaults to
+``cuda``; ``--device cpu`` runs the plain twins.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ def cmd_sim(args):
 
     from .config import SlamConfig
     from .engine.batch import BatchSlam
+    from .engine.refine import global_refine
     from .evalio.writers import trajectory_rows, write_trajectory
     from .sim import StereoLineRenderer, house_segments, wave_trajectory
 
@@ -64,10 +67,28 @@ def cmd_sim(args):
         stats["ate_m"] = _ate(res.trajectory, [poses_gt[i] for i in kf_idx])
     print(f"replayed {len(frames)} frames -> {res.kf_count} keyframes in "
           f"{wall:.2f}s on {eng.device}")
+    ref = None
+    if args.refine and res.kf_count:
+        # the JAX CLI's _refine_batch (slslam_tpu/cli.py:140-157)
+        t0 = time.perf_counter()
+        ref = global_refine(frames, res.is_kf, res.trajectory, config=cfg,
+                            device=eng.device)
+        stats["refine_wall_s"] = time.perf_counter() - t0
+        stats["refine_iterations"] = ref.iterations
+        stats["refine_initial_cost"] = ref.initial_cost
+        stats["refine_final_cost"] = ref.final_cost
+        stats["refine_num_cams"] = ref.num_cams
+        stats["refine_num_obs"] = ref.num_obs
+        stats["refine_ate_m"] = _ate(ref.trajectory,
+                                     [poses_gt[i] for i in kf_idx])
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         write_trajectory(os.path.join(args.out, "trajectory.txt"),
                          res.trajectory)
+        if ref is not None:
+            write_trajectory(os.path.join(args.out,
+                                          "trajectory_refined.txt"),
+                             ref.trajectory)
         if res.kf_count:
             T0 = poses_gt[kf_idx[0]]
             np.savetxt(os.path.join(args.out, "gt_trajectory.txt"),
@@ -92,6 +113,9 @@ def main(argv=None):
     p.add_argument("--max-num-iter", type=int, default=10)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the twins)")
+    p.add_argument("--refine", action="store_true",
+                   help="follow the replay with one global bundle "
+                        "adjustment over every keyframe")
     p.add_argument("--dtype", default="float32",
                    choices=("float32", "float64"))
     p.add_argument("--out", default=None, help="output directory")

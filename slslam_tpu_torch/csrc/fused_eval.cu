@@ -1,4 +1,4 @@
-// K2: fused_eval -- the BA evaluate in one launch, in three variants.
+// K2: fused_eval -- the BA evaluate in one launch, in four variants.
 //
 // Replaces the TPU's fused_eval_pallas (slslam_tpu/ops/pallas_kernels.py:
 // 335-428) and its two kernels _make_fused_camline_kernel (:278-307) and
@@ -19,6 +19,12 @@
 //   lines  Hll, gl and the per-line cost (L,): full with every camera fixed,
 //          the evaluate of lines-GN (lines_gn_impl's eval_lines, schur_ba.py:
 //          269-291).
+//   lm     cost, Hcc, gc, Hll, gl and the cam-line coupling per observation,
+//          Wb (O,6,4) in the caller's row order: the line-major evaluate of
+//          the global refine (slslam_tpu/ops/schur_cg.py _eval_system_lm,
+//          :118-166), whose PCG matvec consumes the per-row blocks.  Rows
+//          that the camera plan drops (w_valid <= 0: the line-major
+//          padding) get exact zeros in Wb.
 //
 // What bounds it on the H100: at the window shape (C = 20, L = 81,
 // O = 1600) the full variant reads ~73 KB and writes ~165 KB (f32); its
@@ -27,7 +33,12 @@
 // times that: by bytes or FLOPs well under a microsecond.  What it takes
 // is launch latency plus the serial dependency chain of one observation's
 // residual and derivatives; one launch and no round trip through device
-// memory is the most this design can do about that.
+// memory is the most this design can do about that.  At the refine's
+// shape (C = 400, L = 74, O = 29,600) lm reads ~2 MB and writes Wb's
+// ~2.8 MB (f32), ~1.5 us at the HBM rate; its ~43 MFLOP take ~0.6 us at
+// the f32 rate.  There the dual-number passes (6 + 4 tangents in camera
+// blocks, 4 more in line blocks) and the register pressure they bring are
+// what the kernel spends.
 //
 // Design.  Rows are reached through segment plans (segment_sum.cu
 // seg_plan), built once per BA solve and reused in every LM iteration:
@@ -46,12 +57,16 @@
 //   * the row's contributions (Hcc|gc|cost: 43 values; Hll|gl|cost: 21)
 //     are summed over the block by a warp-shuffle tree, then over the warps
 //     and the chunks in order, in registers and shared memory;
+//   * Wb (lm): each row of a camera block writes its 24 values straight
+//     to Wb[o]; the camera blocks then share out the plan's dropped rows,
+//     perm[offsets[C] ...), and write zeros there, so every element of Wb
+//     is written and no fill is needed;
 //   * W: each row of a camera block puts its 24 values in shared memory,
 //     and thread e of the block owns the elements e, e + kBlock, ... of
 //     W[c]: it sums the rows of pair (c, l) in plan order and writes the
 //     element, zero where the pair has no row.  Repeated pairs sum, no two
 //     threads touch one element, and every element of W is written;
-//   * the scalar cost (full, cams): each camera block writes its partial to
+//   * the scalar cost (full, cams, lm): each camera block writes its partial to
 //     a C-entry scratch and takes a ticket; the block that takes the last
 //     ticket adds the partials in camera order and resets the ticket to 0
 //     for the next launch (a counter that the wrapper keeps per stream, and
@@ -70,6 +85,7 @@ constexpr int kWarps = kBlock / 32;
 constexpr int kFull = 0;
 constexpr int kCams = 1;
 constexpr int kLines = 2;
+constexpr int kLm = 3;
 constexpr int kCamCols = 43;   // Hcc (36) | gc (6) | cost
 constexpr int kLineCols = 21;  // Hll (16) | gl (4) | cost
 constexpr int kPairCols = 24;  // W
@@ -334,9 +350,10 @@ struct Args {
   T huber;
   int C;
   int L;
+  int O;
   // camera c's rows: row_perm[row_off[c * row_stride] ...
   // row_off[(c + 1) * row_stride]); the pair plan (row_stride = L) in full,
-  // the camera plan (row_stride = 1) in cams
+  // the camera plan (row_stride = 1) in cams and lm
   const int* row_perm;
   const int* row_off;
   int row_stride;
@@ -348,6 +365,7 @@ struct Args {
   T* Hll;
   T* gl;
   T* W;
+  T* Wb;
   T* cost_l;
   T* partial;
   int* tickets;
@@ -426,7 +444,7 @@ __device__ void camera_block(const Args<T>& a, int c) {
 #pragma unroll
           for (int j = 0; j < 6; ++j) Jc[k][j] = r[k].d[j] * w_r * cf;
         }
-        if constexpr (kVariant == kFull) {
+        if constexpr (kVariant == kFull || kVariant == kLm) {
           Dual<T, 4> q[4];
           row_residual<T, 4, 6>(a.cam, a.line, cc, l, ob, a.baseline, q);
           const T lf = a.lfree[l];
@@ -435,6 +453,18 @@ __device__ void camera_block(const Args<T>& a, int c) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) Jl[k][j] = q[k].d[j] * w_r * lf;
         }
+      }
+      if constexpr (kVariant == kLm) {
+        T* w = a.Wb + static_cast<size_t>(o) * kPairCols;
+#pragma unroll
+        for (int i = 0; i < 6; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            T x = T(0);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) x += Jc[k][i] * Jl[k][j];
+            w[i * 4 + j] = x;
+          }
       }
     }
     T v[kCamCols];
@@ -481,6 +511,15 @@ __device__ void camera_block(const Args<T>& a, int c) {
       }
     }
     __syncthreads();
+  }
+  if constexpr (kVariant == kLm) {
+    // the dropped rows, shared out over the camera blocks: zeros
+    for (int k = a.row_off[a.C] + c * kBlock + t; k < a.O;
+         k += a.C * kBlock) {
+      T* w = a.Wb + static_cast<size_t>(a.row_perm[k]) * kPairCols;
+#pragma unroll
+      for (int j = 0; j < kPairCols; ++j) w[j] = T(0);
+    }
   }
   if (t < 36)
     a.Hcc[c * 36 + t] = acc;
@@ -586,7 +625,7 @@ template <typename T>
 int launch(int variant, const void* cam, const void* line, const void* obs,
            const void* oc, const void* ol, const void* wv, const void* cfree,
            const void* lfree, double baseline, double huber, int C, int L,
-           const void* row_perm, const void* row_off, int row_stride,
+           int O, const void* row_perm, const void* row_off, int row_stride,
            const void* line_perm, const void* line_off, void* out,
            void* tickets, void* stream) {
   Args<T> a = {};
@@ -602,6 +641,7 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
   a.huber = static_cast<T>(huber);
   a.C = C;
   a.L = L;
+  a.O = O;
   a.row_perm = static_cast<const int*>(row_perm);
   a.row_off = static_cast<const int*>(row_off);
   a.row_stride = row_stride;
@@ -627,6 +667,10 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
     a.W = o;
     o += static_cast<size_t>(C) * L * kPairCols;
   }
+  if (variant == kLm) {
+    a.Wb = o;
+    o += static_cast<size_t>(O) * kPairCols;
+  }
   if (variant == kLines)
     a.cost_l = o;
   else
@@ -638,6 +682,8 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
     fused_eval_kernel<T, kCams><<<C, kBlock, 0, s>>>(a);
   else if (variant == kLines)
     fused_eval_kernel<T, kLines><<<L, kBlock, 0, s>>>(a);
+  else if (variant == kLm)
+    fused_eval_kernel<T, kLm><<<C + L, kBlock, 0, s>>>(a);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -645,35 +691,38 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
 
 }  // namespace
 
-// variant: 0 full, 1 cams, 2 lines.  Output buffer, every element written:
+// variant: 0 full, 1 cams, 2 lines, 3 lm.  Output buffer, every element
+// written:
 //   full   cost (1) | Hcc (C*36) | gc (C*6) | Hll (L*16) | gl (L*4) |
 //          W (C*L*24) | partial costs (C)
 //   cams   cost (1) | Hcc (C*36) | gc (C*6) | partial costs (C)
 //   lines  Hll (L*16) | gl (L*4) | per-line cost (L)
+//   lm     cost (1) | Hcc (C*36) | gc (C*6) | Hll (L*16) | gl (L*4) |
+//          Wb (O*24) | partial costs (C)
 // tickets: one int, 0 before the launch and 0 again after it, used by no
 // other launch in flight.  C, L >= 1.
 extern "C" int fused_eval_f32(int variant, const void* cam, const void* line,
                               const void* obs, const void* oc, const void* ol,
                               const void* wv, const void* cfree,
                               const void* lfree, double baseline, double huber,
-                              int C, int L, const void* row_perm,
+                              int C, int L, int O, const void* row_perm,
                               const void* row_off, int row_stride,
                               const void* line_perm, const void* line_off,
                               void* out, void* tickets, void* stream) {
   return launch<float>(variant, cam, line, obs, oc, ol, wv, cfree, lfree,
-                       baseline, huber, C, L, row_perm, row_off, row_stride,
-                       line_perm, line_off, out, tickets, stream);
+                       baseline, huber, C, L, O, row_perm, row_off,
+                       row_stride, line_perm, line_off, out, tickets, stream);
 }
 
 extern "C" int fused_eval_f64(int variant, const void* cam, const void* line,
                               const void* obs, const void* oc, const void* ol,
                               const void* wv, const void* cfree,
                               const void* lfree, double baseline, double huber,
-                              int C, int L, const void* row_perm,
+                              int C, int L, int O, const void* row_perm,
                               const void* row_off, int row_stride,
                               const void* line_perm, const void* line_off,
                               void* out, void* tickets, void* stream) {
   return launch<double>(variant, cam, line, obs, oc, ol, wv, cfree, lfree,
-                        baseline, huber, C, L, row_perm, row_off, row_stride,
-                        line_perm, line_off, out, tickets, stream);
+                        baseline, huber, C, L, O, row_perm, row_off,
+                        row_stride, line_perm, line_off, out, tickets, stream);
 }

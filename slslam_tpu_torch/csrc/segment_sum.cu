@@ -6,9 +6,10 @@
 // VMEM and multiplies it on the MXU over a sequential (P-tiles, O-chunks)
 // grid.  Rows whose index is outside [0, P) are padding and are dropped.
 //
-// What bounds it on the H100: nothing the card is short of.  The BA path
-// calls it at O = 162..1600 rows, D = 1..42 lanes, P = 4..1620 segments:
-// at most ~270 KB read, a few microseconds of work.  It is launch-bound;
+// What bounds it on the H100: nothing the card is short of.  The window BA
+// calls it at O = 162..1600 rows, D = 1..42 lanes, P = 4..1620 segments,
+// the refine's PCG at O = 29,600 rows, D = 6 or 36, P = 400 cameras: at
+// most ~4.3 MB read, a few microseconds of work.  It is launch-bound;
 // what the design can cut is the serial work inside each block.
 //
 // The segment plan (seg_plan) is a stable counting sort of the rows by

@@ -1,10 +1,12 @@
-"""NumPy (float64) pose algebra of the host side: ``Pose`` and ``so3_log``.
+"""NumPy (float64) host geometry: ``Pose``, ``so3_log`` and the batched
+orth line conversions.
 
 A copy of the parts of ``slslam_tpu/hostgeom.py`` that the port calls
-(``Pose``, ``skew``, ``rodrigues``, ``so3_log``), kept here so that the port
-imports nothing of the JAX package.  ``tests/test_torch_copies.py`` checks
-that the copies agree with the originals.  Reference semantics: the
-reference's src/gc.cpp.
+(``Pose``, ``skew``, ``rodrigues``, ``so3_log``, and ``_normalize_rows``,
+``av_to_orth_np``, ``orth_to_av_np`` of :137-180 for the global refine),
+kept here so that the port imports nothing of the JAX package.
+``tests/test_torch_copies.py`` checks that the copies agree with the
+originals.  Reference semantics: the reference's src/gc.cpp.
 """
 
 from __future__ import annotations
@@ -90,3 +92,48 @@ def so3_log(R):
     if s < 1e-8:
         return (1.0 + (1.0 - c) / 6.0) * vee
     return (theta / s) * vee
+
+
+def _normalize_rows(v):
+    n = np.linalg.norm(v, axis=-1, keepdims=True)
+    return np.where(n > 0, v / np.where(n > 0, n, 1.0), v)
+
+
+def av_to_orth_np(av):
+    """(N, 6) -> (N, 4), batched NumPy mirror of geometry.av_to_orth."""
+    a = av[:, :3]
+    v = av[:, 3:]
+    n = np.cross(a, v)
+    x = _normalize_rows(n)
+    y = _normalize_rows(v)
+    z = np.cross(x, y)
+
+    beta = np.arcsin(np.clip(-x[:, 2], -1.0, 1.0))
+    alpha_reg = np.arctan2(y[:, 2], z[:, 2])
+    gamma_reg = np.arctan2(x[:, 1], x[:, 0])
+    lock = np.abs(np.abs(x[:, 2]) - 1.0) < 1e-12
+    sign_term = np.where(x[:, 2] < 0, y[:, 0], -y[:, 0])
+    alpha = np.where(lock, np.arctan2(sign_term, y[:, 1]), alpha_reg)
+    gamma = np.where(lock, 0.0, gamma_reg)
+
+    nn = np.linalg.norm(n, axis=1)
+    vn = np.linalg.norm(v, axis=1)
+    wnorm = np.sqrt(nn * nn + vn * vn)
+    theta = np.arcsin(np.clip(vn / np.maximum(wnorm, 1e-300), -1.0, 1.0))
+    return np.stack([alpha, beta, gamma, theta], axis=1)
+
+
+def orth_to_av_np(orth):
+    """(N, 4) -> (N, 6), batched NumPy mirror of geometry.orth_to_av."""
+    a, b, g, t = orth[:, 0], orth[:, 1], orth[:, 2], orth[:, 3]
+    s1, c1 = np.sin(a), np.cos(a)
+    s2, c2 = np.sin(b), np.cos(b)
+    s3, c3 = np.sin(g), np.cos(g)
+    d = np.cos(t) / np.sin(t)
+    col2 = np.stack([c1 * s2 * c3 + s1 * s3,
+                     c1 * s2 * s3 - s1 * c3,
+                     c1 * c2], axis=1)
+    col1 = np.stack([s1 * s2 * c3 - c1 * s3,
+                     s1 * s2 * s3 + c1 * c3,
+                     s1 * c2], axis=1)
+    return np.concatenate([-col2 * d[:, None], col1], axis=1)

@@ -11,7 +11,8 @@ max|twin|), per output:
 * segment plans: exact (integers);
 * K1 (deterministic, fixed-order sums): 1e-12 in float64, 1e-5 in float32;
 * K2, every variant (deterministic, fixed-order sums; dual-number vs
-  torch.func derivatives): 1e-10 in float64, 1e-5 in float32.
+  torch.func derivatives): 1e-10 in float64, 1e-5 in float32; ``lm``'s
+  Wb rows that its plan drops must be exactly zero.
 
 Bounds (``bound``) follow the H100 SXM data sheet: 3.35 TB/s of HBM3 and
 67 TFLOP/s of float32 outside the tensor cores, each input read once and
@@ -25,22 +26,34 @@ import torch
 
 from .ops import kernels
 
+# The global refine's line-major problem on the bench's workload (the
+# house, render seed 4, 400 keyframes): C cameras, L lines, kL rows a line,
+# so L kL flat rows of which 0.8 % are padding
+REFINE_C, REFINE_L, REFINE_KL = 400, 74, 400
+REFINE_O = REFINE_L * REFINE_KL
 # (O, D, P) of K1's calls: first the main path's, lines-GN's trial cost
 # (2W x Om rows, 1 lane, Lp lines) with its line plan; then the assembly's
-# widths (lines Hll|gl|cost and the 4-camera Hcc|gc of the VO window)
-K1_SHAPES = ((1600, 1, 81), (1600, 21, 81), (162, 42, 4))
-# (O, P) of the plans a frame builds: the window's lines and (cam, line)
-# pairs, the VO polish's cameras
-PLAN_SHAPES = ((1600, 81), (1600, 20 * 81), (162, 4))
+# widths (lines Hll|gl|cost and the 4-camera Hcc|gc of the VO window); then
+# the refine PCG's camera sums, the matvec's (6 lanes) and the
+# preconditioner's (36)
+K1_SHAPES = ((1600, 1, 81), (1600, 21, 81), (162, 42, 4),
+             (REFINE_O, 6, REFINE_C), (REFINE_O, 36, REFINE_C))
+# (O, P) of the plans the main path builds: a frame's window lines and
+# (cam, line) pairs and its VO polish's cameras; a refine solve's cameras
+# and lines
+PLAN_SHAPES = ((1600, 81), (1600, 20 * 81), (162, 4),
+               (REFINE_O, REFINE_C), (REFINE_O, REFINE_L))
 # (C, L, O) of each K2 variant on the main path: the window BA, the VO
-# polish (2 frames x Lp rows over 4 cameras), lines-GN over the window
+# polish (2 frames x Lp rows over 4 cameras), lines-GN over the window,
+# the refine's line-major evaluate
 K2_SHAPES = {"full": (20, 81, 1600), "cams": (4, 81, 162),
-             "lines": (20, 81, 1600)}
+             "lines": (20, 81, 1600), "lm": (REFINE_C, REFINE_L, REFINE_O)}
 K1_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 K2_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
 K2_OUTPUTS = ("cost", "Hcc", "Hll", "gc", "gl", "W")
 K2_VARIANT_OUTPUTS = {"full": K2_OUTPUTS, "cams": ("cost", "Hcc", "gc"),
-                      "lines": ("Hll", "gl", "cost_l")}
+                      "lines": ("Hll", "gl", "cost_l"),
+                      "lm": ("cost", "Hcc", "Hll", "gc", "gl", "Wb")}
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -102,10 +115,49 @@ def k2_case(dtype, device, C=20, L=81, O=1600, seed=0):
                 huber_delta=1.0 / 406.05)
 
 
+def k2_lm_case(dtype, device, C=REFINE_C, L=REFINE_L, kL=REFINE_KL,
+               pad_frac=0.008, seed=0):
+    """Arguments of fused_eval on a line-major problem: L buckets of kL
+    rows (rows of line l at [l kL, (l + 1) kL), obs_line = l), each
+    observed by distinct cameras (kL <= C) in random order, ``pad_frac`` of
+    the rows padding (w_valid 0, zero observations, camera 0) at the end
+    of their buckets; a fixed camera and a fixed line."""
+    rng = np.random.default_rng(seed)
+    cam = rng.standard_normal((C, 6)) * 0.1
+    cam[1 % C, :3] = 0.0
+    line = rng.standard_normal((L, 4)) * 0.2
+    line[:, 3] = 0.3 + 0.5 * rng.random(L)
+    oc = np.stack([rng.permutation(C)[:kL] for _ in range(L)])
+    n_pad = rng.multinomial(int(round(pad_frac * L * kL)), np.ones(L) / L)
+    valid = np.arange(kL)[None, :] < (kL - n_pad)[:, None]
+    oc[~valid] = 0
+    obs = rng.standard_normal((L, kL, 8)) * 0.2
+    obs[~valid] = 0.0
+    cfree = np.ones(C)
+    cfree[0] = 0.0
+    lfree = np.ones(L)
+    lfree[5 % L] = 0.0
+
+    def f(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    def i(x):
+        return torch.as_tensor(np.asarray(x, np.int32).reshape(-1),
+                               device=device)
+
+    return dict(cam_wt=f(cam), line_orth=f(line), obs=f(obs.reshape(-1, 8)),
+                obs_cam=i(oc), obs_line=i(np.repeat(np.arange(L), kL)),
+                w_valid=f(valid.reshape(-1).astype(np.float64)),
+                cam_free_f=f(cfree), line_free_f=f(lfree), baseline=0.12,
+                huber_delta=1.0 / 406.05)
+
+
 def k2_variant_case(variant, dtype, device):
-    """k2_case at the variant's main-path shape, and its plan."""
+    """The variant's case at its main-path shape (k2_lm_case for ``lm``,
+    k2_case otherwise), and its plan."""
     C, L, O = K2_SHAPES[variant]
-    args = k2_case(dtype, device, C=C, L=L, O=O)
+    args = (k2_lm_case(dtype, device) if variant == "lm"
+            else k2_case(dtype, device, C=C, L=L, O=O))
     plan = kernels.ba_plan(args["obs_cam"], args["obs_line"],
                            args["w_valid"], C, L, variant)
     return args, plan
@@ -165,8 +217,15 @@ def check_k2(dtype, device, variant="full"):
     """K2's ``variant`` on ``device`` against its twin on the same device,
     launched twice with the variant's plan, at the variant's main-path
     shape.  Returns {output: (normalized error, max abs error)}; raises if
-    an error exceeds K2_TOL or if the two launches differ in any bit."""
+    an error exceeds K2_TOL or if the two launches differ in any bit.  For
+    ``lm`` the first launch's output lands in memory that held NaNs (the
+    caching allocator hands the freed block back), and every Wb row that
+    the plan drops must come out exactly zero."""
     args, plan = k2_variant_case(variant, dtype, device)
+    if variant == "lm":
+        C, L, O = K2_SHAPES[variant]
+        n = 1 + C * 42 + L * 20 + O * 24 + C
+        torch.full((n,), float("nan"), dtype=dtype, device=device)
     got = kernels.fused_eval(**args, variant=variant, plan=plan)
     again = kernels.fused_eval(**args, variant=variant, plan=plan)
     ref = kernels.fused_eval_twin(**args, variant=variant)
@@ -179,7 +238,17 @@ def check_k2(dtype, device, variant="full"):
         if not errs[name][0] <= K2_TOL[dtype]:
             raise AssertionError(f"fused_eval/{variant} {dtype} {name}: "
                                  f"error {errs[name][0]} > {K2_TOL[dtype]}")
+    if variant == "lm":
+        dropped = dropped_rows(plan.cam)
+        if dropped.numel() == 0 or torch.any(got[5][dropped] != 0):
+            raise AssertionError(f"fused_eval/lm {dtype}: a dropped row of "
+                                 "Wb is not exactly zero")
     return errs
+
+
+def dropped_rows(plan):
+    """The rows a segment plan drops: perm[offsets[P]:]."""
+    return plan.perm[int(plan.offsets[-1]):].long()
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +301,7 @@ _K2_OPS = {
     "line_out": 70 + 28 + 14,   # Hll (10 distinct), gl, the adds
     "line_cost": 1,             # the per-line cost's add
     "pair_out": 168 + 24,       # W and its adds
+    "row_out": 168,             # Wb per row, no reduction
 }
 _K2_PARTS = {
     "full": ("residual", "dr_dq", "cam_cols", "line_cols", "huber",
@@ -241,6 +311,8 @@ _K2_PARTS = {
              "weigh_cam", "cam_out"),
     "lines": ("residual", "dr_dq", "line_cols", "huber", "weigh_r",
               "weigh_line", "line_out", "line_cost"),
+    "lm": ("residual", "dr_dq", "cam_cols", "line_cols", "huber", "weigh_r",
+           "weigh_cam", "weigh_line", "cam_out", "line_out", "row_out"),
 }
 
 
@@ -262,6 +334,7 @@ def k2_work(args, variant, plan):
     for p in plan:
         if p is not None:
             read += 4 * n + 4 * p.offsets.numel()
+    O = args["obs"].shape[0]
     write = {"full": 1 + C * 42 + L * 20 + C * L * 24, "cams": 1 + C * 42,
-             "lines": L * 21}[variant] * e
+             "lines": L * 21, "lm": 1 + C * 42 + L * 20 + O * 24}[variant] * e
     return read + write, n * k2_row_ops(variant)

@@ -5,19 +5,23 @@ rows with idx outside [0, P) dropped.  Replaces ``segment_sum_pallas``
 (slslam_tpu/ops/pallas_kernels.py:49-81).  Its source also holds the
 segment plan, ``segment_plan``: the rows grouped stably by index (a
 permutation plus offsets), which a BA solve builds once and hands to K1 and
-K2 in every LM iteration.  On the main path K1 sums lines-GN's trial cost.
+K2 in every LM iteration.  On the main path K1 sums lines-GN's trial cost
+and the refine PCG's per-camera rows (``schur_cg._solve_step_cg``).
 Source: ``csrc/segment_sum.cu``.
 
 K2 ``fused_eval`` — the BA evaluate in one launch: gather, residual,
 forward-mode Jacobian columns, Huber weights, NaN-proof masks, and the
-reductions, in three variants (``VARIANTS``):
+reductions, in four variants (``VARIANTS``):
 
 * ``full``: cost, Hcc, Hll, gc, gl and the cam-line coupling W (the window
   BA, ``schur_ba._eval_system``);
 * ``cams``: cost, Hcc, gc — ``full`` with every line fixed (the pose-only
   VO polish, ``schur_ba._eval_pose_system``);
 * ``lines``: Hll, gl and the per-line cost — ``full`` with every camera
-  fixed (lines-GN's evaluate).
+  fixed (lines-GN's evaluate);
+* ``lm``: cost, Hcc, Hll, gc, gl and the cam-line coupling per row, Wb
+  (O,6,4) — the global refine's line-major evaluate
+  (``schur_cg._eval_system_lm``).
 
 Replaces ``fused_eval_pallas`` with its two kernels
 (pallas_kernels.py:278-428).  Source: ``csrc/fused_eval.cu``.
@@ -52,7 +56,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("segment_sum.cu", "fused_eval.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-VARIANTS = ("full", "cams", "lines")
+VARIANTS = ("full", "cams", "lines", "lm")
 
 # launches of each kernel since the last reset_launch_counts()
 launch_counts: Dict[str, int] = {
@@ -94,8 +98,8 @@ def _bind(libs):
         fn.argtypes = [p, p, p, p, i, i, p]
         fn.restype = i
         fn = getattr(k2, f"fused_eval_{suf}")
-        fn.argtypes = [i, p, p, p, p, p, p, p, p, d, d, i, i, p, p, i, p, p,
-                       p, p, p]
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, d, d, i, i, i, p, p, i, p,
+                       p, p, p, p]
         fn.restype = i
     k1.seg_plan.argtypes = [p, i, i, p, p, p]
     k1.seg_plan.restype = i
@@ -244,8 +248,8 @@ def segment_plan(key, num_segments):
 
 class BAPlan(NamedTuple):
     """Segment plans of one BA solve's rows (valid rows only): by camera
-    (``cams``), by line (``full``, ``lines``) and by (cam, line) pair
-    (``full``).  The rows never change inside a solve."""
+    (``cams``, ``lm``), by line (``full``, ``lines``, ``lm``) and by (cam,
+    line) pair (``full``).  The rows never change inside a solve."""
 
     cam: Optional[SegmentPlan]
     line: Optional[SegmentPlan]
@@ -265,7 +269,7 @@ def ba_plan(obs_cam, obs_line, w_valid, C, L, variant):
         return segment_plan(key.to(torch.int32).contiguous(), P)
 
     return BAPlan(
-        cam=plan(obs_cam, C) if variant == "cams" else None,
+        cam=plan(obs_cam, C) if variant in ("cams", "lm") else None,
         line=plan(obs_line, L) if variant != "cams" else None,
         pair=plan(obs_cam * L + obs_line, C * L) if variant == "full"
         else None)
@@ -345,7 +349,8 @@ def fused_eval_twin(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     """Plain version of K2: torch.func Jacobians, then ``index_add_``
     reductions.  ``full`` is ``_eval_system`` (schur_ba.py:93-176), ``cams``
     ``_eval_pose_system`` (:179-209), ``lines`` lines_gn_impl's
-    ``eval_lines`` (:269-291)."""
+    ``eval_lines`` (:269-291), ``lm`` schur_cg.py's ``_eval_system_lm``
+    (:118-166) on flat rows."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown fused_eval variant {variant!r}")
     C = cam_wt.shape[0]
@@ -353,7 +358,7 @@ def fused_eval_twin(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     oc = obs_cam.long()
     ol = obs_line.long()
     cw, lo = cam_wt[oc], line_orth[ol]
-    if variant == "full":
+    if variant in ("full", "lm"):
         r, Jc, Jl = lba_residual_jac_batch(cw, lo, obs, baseline,
                                            line_param=line_param)
     elif variant == "cams":
@@ -386,6 +391,8 @@ def fused_eval_twin(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     if variant == "lines":
         return Hll, gl, _acc((L,), ol, cost_o)
     Wb = torch.einsum("oki,okj->oij", Jc, Jl)
+    if variant == "lm":
+        return torch.sum(cost_o), Hcc, Hll, gc, gl, Wb
     W = _acc((C * L, 6, 4), oc * L + ol, Wb).reshape(C, L, 6, 4)
     return torch.sum(cost_o), Hcc, Hll, gc, gl, W
 
@@ -426,7 +433,9 @@ def fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     * ``full``: cost (), Hcc (C,6,6), Hll (L,4,4), gc (C,6), gl (L,4),
       W (C,L,6,4);
     * ``cams``: cost, Hcc, gc;
-    * ``lines``: Hll, gl, per-line cost (L,).
+    * ``lines``: Hll, gl, per-line cost (L,);
+    * ``lm``: cost, Hcc, Hll, gc, gl, Wb (O,6,4) per row, zero on the rows
+      the plan drops.
 
     ``plan``: ``ba_plan(obs_cam, obs_line, w_valid, C, L, variant)``, built
     once per solve; without one the wrapper builds it.  CPU tensors take
@@ -481,7 +490,8 @@ def fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     lines_part = (L * 16, L * 4)
     sizes = {"full": cams_part + lines_part + (C * L * 24, C),
              "cams": cams_part + (C,),
-             "lines": lines_part + (L,)}[variant]
+             "lines": lines_part + (L,),
+             "lm": cams_part + lines_part + (O * 24, C)}[variant]
     buf = torch.empty(sum(sizes), dtype=cam_wt.dtype, device=dev)
     huber = float(huber_delta) if robust else -1.0
     lib = load_library()["fused_eval"]
@@ -493,7 +503,7 @@ def fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     err = fn(VARIANTS.index(variant), cam_wt.data_ptr(), line_orth.data_ptr(),
              obs.data_ptr(), obs_cam.data_ptr(), obs_line.data_ptr(),
              w_valid.data_ptr(), cfree, lfree, float(baseline), huber, C, L,
-             *ptrs(rows), stride, *ptrs(plan.line), buf.data_ptr(),
+             O, *ptrs(rows), stride, *ptrs(plan.line), buf.data_ptr(),
              ticket.data_ptr(), ctypes.c_void_p(stream.cuda_stream))
     _raise_on("fused_eval", err)
     launch_counts[f"fused_eval/{variant}"] += 1
@@ -505,4 +515,6 @@ def fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     if variant == "cams":
         return cost, Hcc, gc
     Hll, gl, W = parts[3].view(L, 4, 4), parts[4].view(L, 4), parts[5]
+    if variant == "lm":
+        return cost, Hcc, Hll, gc, gl, W.view(O, 6, 4)
     return cost, Hcc, Hll, gc, gl, W.view(C, L, 6, 4)

@@ -1,0 +1,354 @@
+"""Large-scale bundle adjustment: matrix-free Schur solve with PCG.
+
+Port of ``slslam_tpu/ops/schur_cg.py``, the analog of Ceres's
+ITERATIVE_SCHUR with the SCHUR_JACOBI preconditioner that the global
+refine (``engine/refine.py``) runs.  See the JAX module's docstring for the
+design; in short:
+
+* observations live in a line-major bucketed layout, (L, kL) padded rows,
+  one bucket per line (``pack_line_major``, a copy of :49-111): per-line
+  reductions are dense sums over the bucket axis;
+* the reduced camera system S = Hcc_d - W Binv W^T is never built: PCG runs
+  on it with a matvec over the per-row coupling blocks Wb (L, kL, 6, 4);
+* the preconditioner is the exact 6x6 diagonal blocks of S;
+* the LM trust-region loop is ``ops/schur_ba.py``'s, and the inner CG
+  stops by Ceres's eta forcing (||r|| <= eta ||rhs||).
+
+On Hopper the evaluate is K2's ``lm`` variant (``ops/kernels.py``), one
+launch per LM iteration; the per-camera sums over rows (the matvec's and
+the preconditioner's) are K1 ``segment_sum`` over the solve's camera plan,
+built once per solve together with the line plan (``ba_plan(..., "lm")``).
+Where JAX gathers through the (C, kC) camera permutation, this port reads
+the camera plan, so ``cam_perm`` is not an argument of the solver.  The LM
+and PCG loops are Python loops that read their condition from the device
+once per iteration.  On CPU tensors the kernels' plain twins run.
+
+Not ported (they raise NotImplementedError): the pose priors ``prior_c``
+and ``prior_edges``, which need ``pose_graph``'s edge residual (ROADMAP
+P9).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .kernels import ba_plan, fused_eval, segment_sum
+from .residuals import lba_residual_batch, robust_weights
+from .schur_ba import (_INIT_RADIUS, _MAX_DIAG, _MIN_DIAG,
+                       _MIN_RELATIVE_DECREASE, _inv4_equilibrated,
+                       _tolerances)
+
+
+# ---------------------------------------------------------------------------
+# Host-side layout builder (a copy of slslam_tpu/ops/schur_cg.py:49-111;
+# tests/test_torch_schur_cg.py checks that it packs identically)
+# ---------------------------------------------------------------------------
+
+class LineMajorProblem(NamedTuple):
+    """Bucketed BA problem (host numpy; pass to global_ba_cg as tensors)."""
+
+    obs: np.ndarray        # (L, kL, 8)
+    obs_cam: np.ndarray    # (L, kL) int32 camera index per observation
+    obs_valid: np.ndarray  # (L, kL) bool
+    cam_perm: np.ndarray   # (C, kC) int32 flat index into L*kL
+    cam_perm_valid: np.ndarray  # (C, kC) bool
+    kL: int
+    kC: int
+    fill: float            # valid / padded observation ratio
+
+
+def pack_line_major(obs, obs_cam, obs_line, num_cams, num_lines,
+                    round_to: int = 8, k_l=None, k_c=None) -> LineMajorProblem:
+    """Bucket flat observations by line + build the camera permutation.
+
+    obs (O, 8), obs_cam (O,), obs_line (O,) — valid observations only.
+    Bucket sizes are padded to multiples of ``round_to`` for friendly
+    tiling.  ``k_l`` / ``k_c`` force the bucket sizes (must be >= the
+    natural ones) so several problems share a layout.
+    """
+    obs = np.asarray(obs, np.float64).reshape(-1, 8)
+    obs_cam = np.asarray(obs_cam, np.int64)
+    obs_line = np.asarray(obs_line, np.int64)
+    O = len(obs)
+    C, L = int(num_cams), int(num_lines)
+
+    cnt_l = np.bincount(obs_line, minlength=L)
+    cnt_c = np.bincount(obs_cam, minlength=C)
+    rnd = lambda n: max(round_to, int(-(-n // round_to) * round_to))
+    kL = int(k_l) if k_l else rnd(int(cnt_l.max()) if O else 1)
+    kC = int(k_c) if k_c else rnd(int(cnt_c.max()) if O else 1)
+    if O and not (kL >= cnt_l.max() and kC >= cnt_c.max()):
+        raise ValueError(f"bucket sizes {(kL, kC)} below the counts "
+                         f"{(int(cnt_l.max()), int(cnt_c.max()))}")
+
+    ob = np.zeros((L, kL, 8))
+    oc = np.zeros((L, kL), np.int32)
+    ov = np.zeros((L, kL), bool)
+    # slot within bucket = rank among observations of the same line
+    # (vectorized: stable sort by line, then index minus group start)
+    order = np.argsort(obs_line, kind="stable")
+    ls = obs_line[order]
+    start_l = np.searchsorted(ls, np.arange(L))
+    slot = np.arange(O) - start_l[ls] if O else np.zeros(0, np.int64)
+    ob[ls, slot] = obs[order]
+    oc[ls, slot] = obs_cam[order]
+    ov[ls, slot] = True
+    flat_of = np.empty(O, np.int64)
+    flat_of[order] = ls * kL + slot
+
+    cp = np.zeros((C, kC), np.int32)
+    cpv = np.zeros((C, kC), bool)
+    order_c = np.argsort(obs_cam, kind="stable")
+    cs = obs_cam[order_c]
+    start_c = np.searchsorted(cs, np.arange(C))
+    slot_c = np.arange(O) - start_c[cs] if O else np.zeros(0, np.int64)
+    cp[cs, slot_c] = flat_of[order_c]
+    cpv[cs, slot_c] = True
+
+    fill = O / max(L * kL, 1)
+    return LineMajorProblem(ob, oc, ov, cp, cpv, kL, kC, fill)
+
+
+class CGStats(NamedTuple):
+    iterations: torch.Tensor      # LM steps, accepted or not
+    initial_cost: torch.Tensor
+    final_cost: torch.Tensor
+    cg_iterations: torch.Tensor   # PCG iterations over all LM steps
+
+
+# ---------------------------------------------------------------------------
+# System evaluation (residuals + blocks, no dense W)
+# ---------------------------------------------------------------------------
+
+def _line_rows(L, kL, device):
+    """obs_line of the flat line-major rows: row l kL + k is line l's."""
+    return torch.arange(L, dtype=torch.int32,
+                        device=device).repeat_interleave(kL)
+
+
+def lm_plan(obs_cam, w_valid, num_cams):
+    """The camera and line plans of a line-major problem's valid rows,
+    obs_cam and w_valid (L, kL): ``ba_plan(..., "lm")`` on the flat rows.
+    A solve builds it once."""
+    L, kL = obs_cam.shape
+    return ba_plan(obs_cam.reshape(-1).to(torch.int32).contiguous(),
+                   _line_rows(L, kL, obs_cam.device),
+                   w_valid.reshape(-1), num_cams, L, "lm")
+
+
+def _eval_system_lm(cam_wt, line_orth, obs, obs_cam, w_valid, cam_free_f,
+                    line_free_f, baseline, huber_delta, robust,
+                    line_param="orth", plan=None):
+    """Blocks for the bucketed layout (schur_cg.py:118-166): K2 ``lm`` on
+    the flat (L kL) rows.
+
+    obs (L, kL, 8), obs_cam (L, kL), w_valid (L, kL) ->  cost, Hcc (C,6,6),
+    Hll (L,4,4), gc (C,6), gl (L,4), Wb (L,kL,6,4).  Padded observations
+    contribute exact zeros, so gathers need no re-masking.  ``plan``:
+    ``lm_plan(obs_cam, w_valid, C)``."""
+    L, kL = obs.shape[:2]
+    cost, Hcc, Hll, gc, gl, Wb = fused_eval(
+        cam_wt, line_orth, obs.reshape(L * kL, 8),
+        obs_cam.reshape(-1).to(torch.int32).contiguous(),
+        _line_rows(L, kL, obs.device), w_valid.reshape(-1), cam_free_f,
+        line_free_f, baseline, huber_delta, robust=robust,
+        line_param=line_param, variant="lm", plan=plan)
+    return cost, Hcc, Hll, gc, gl, Wb.reshape(L, kL, 6, 4)
+
+
+def _cost_lm(cam_wt, line_orth, obs, obs_cam, w_valid, baseline,
+             huber_delta, robust, line_param="orth"):
+    """The robust cost alone, for LM's trial points (schur_cg.py:394-406
+    without the priors): residuals only, no Jacobians."""
+    L, kL = obs.shape[:2]
+    r = lba_residual_batch(cam_wt[obs_cam.reshape(-1).long()],
+                           line_orth.repeat_interleave(kL, dim=0),
+                           obs.reshape(L * kL, 8), baseline,
+                           line_param=line_param)
+    _, cost_i = robust_weights(r, huber_delta, robust)
+    return torch.sum(torch.where(w_valid.reshape(-1) > 0, cost_i,
+                                 torch.zeros_like(cost_i)))
+
+
+# ---------------------------------------------------------------------------
+# Matrix-free Schur solve (PCG with SCHUR_JACOBI preconditioner)
+# ---------------------------------------------------------------------------
+
+def _solve_step_cg(Hcc, Hll, gc, gl, Wb, obs_cam, cam_plan, lam,
+                   cam_free_f, line_free_f, cg_iters, eta):
+    """(H + lam D^2) delta = -g by PCG on the reduced camera system
+    (schur_cg.py:173-277, without the prior's Hoff).  ``cam_plan``: the
+    camera plan of the valid rows; every per-camera sum over rows is one
+    K1 call over it.  Returns (dc, dl, damp_quad, g_dot_d, PCG
+    iterations)."""
+    C = Hcc.shape[0]
+    L, kL = Wb.shape[:2]
+    dtype, dev = Hcc.dtype, Hcc.device
+    oc = obs_cam.long()
+
+    diag_c = torch.clamp(torch.diagonal(Hcc, dim1=-2, dim2=-1),
+                         _MIN_DIAG, _MAX_DIAG)
+    diag_l = torch.clamp(torch.diagonal(Hll, dim1=-2, dim2=-1),
+                         _MIN_DIAG, _MAX_DIAG)
+    eye4 = torch.eye(4, dtype=dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    Binv = _inv4_equilibrated(Hll + lam * diag_l[..., None] * eye4)
+    Hcc_d = Hcc + lam * diag_c[..., None] * eye6
+
+    m = cam_free_f[:, None]                                # (C,1)
+
+    def cam_sum(rows):
+        """(L, kL, ...) per-row values -> (C, ...) sums over the rows of
+        each camera (K1 over the camera plan)."""
+        flat = rows.reshape(L * kL, -1).contiguous()
+        out = segment_sum(flat, cam_plan.key, C, plan=cam_plan)
+        return out.reshape((C,) + rows.shape[2:])
+
+    def matvec(x):
+        """S x with S = Hcc_d - W Binv W^T, fixed cameras -> identity."""
+        xm = x * m
+        y = torch.einsum("lkab,lka->lkb", Wb, xm[oc])      # (L,kL,4)
+        z = torch.sum(y, dim=1)                            # (L,4)
+        w = torch.einsum("lab,lb->la", Binv, z)            # (L,4)
+        u = torch.einsum("lkab,lb->lka", Wb, w)            # (L,kL,6)
+        Sx = torch.einsum("cab,cb->ca", Hcc_d, xm) - cam_sum(u)
+        return Sx * m + x * (1.0 - m)
+
+    # rhs = -gc + W Binv gl
+    w0 = torch.einsum("lab,lb->la", Binv, gl)
+    u0 = torch.einsum("lkab,lb->lka", Wb, w0)
+    rhs = (-gc + cam_sum(u0)) * m
+
+    # SCHUR_JACOBI: exact 6x6 diagonal blocks of S (one obs per (cam,line)
+    # pair, so only the camera's own rows contribute)
+    T = torch.einsum("lkab,lbc,lkdc->lkad", Wb, Binv, Wb)  # (L,kL,6,6)
+    P = Hcc_d - cam_sum(T)
+    P = torch.where(m[..., None] > 0, P, eye6)
+    Minv = _inv4_equilibrated(P)                           # size-agnostic
+
+    def precond(r):
+        return torch.einsum("cab,cb->ca", Minv, r)
+
+    # PCG (Ceres eta forcing: stop at ||r|| <= eta * ||rhs||); the loop
+    # condition is read from the device once per iteration
+    tol2 = (eta * eta) * torch.sum(rhs * rhs)
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    one = torch.ones((), dtype=dtype, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    it = 0
+    while it < cg_iters and bool(torch.sum(r * r) > tol2):
+        Ap = matvec(p)
+        pAp = torch.sum(p * Ap)
+        pos = pAp > 0
+        alpha = torch.where(pos, rz / torch.where(pos, pAp, one), zero)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.where(rz != 0, rz, one)
+        p = z + beta * p
+        rz = rz_new
+        it += 1
+    dc = x * m
+
+    # back-substitute line updates
+    y = torch.einsum("lkab,lka->lkb", Wb, dc[oc])
+    coup = torch.sum(y, dim=1)                             # (L,4)
+    dl = -torch.einsum("lab,lb->la", Binv, gl + coup)
+    dl = dl * line_free_f[:, None]
+
+    damp_quad = lam * (torch.sum(diag_c * dc * dc)
+                       + torch.sum(diag_l * dl * dl))
+    g_dot_d = torch.sum(gc * dc) + torch.sum(gl * dl)
+    return dc, dl, damp_quad, g_dot_d, it
+
+
+def global_ba_cg(cam_wt, line_orth, obs, obs_cam, obs_valid, cam_free,
+                 line_free, baseline, huber_delta, robust=True, max_iters=25,
+                 cg_iters=100, eta=1e-2, line_param="orth", prior_c=None,
+                 prior_edges=None):
+    """LM bundle adjustment on the bucketed layout with matrix-free Schur
+    (global_ba_cg_impl, schur_cg.py:280-472).
+
+    obs (L, kL, 8), obs_cam (L, kL), obs_valid (L, kL) from
+    pack_line_major; cam_free (C,), line_free (L,) bool.  The JAX
+    function's ``cam_perm`` / ``cam_perm_valid`` are not taken: the solve
+    builds its camera plan from obs_cam and obs_valid.
+
+    Returns (cam', line', CGStats)."""
+    if prior_c is not None or prior_edges is not None:
+        raise NotImplementedError(
+            "global_ba_cg: the pose priors prior_c / prior_edges need "
+            "pose_graph's edge residual, which is not ported yet (ROADMAP.md "
+            "Queue 1, P9)")
+    dtype, dev = cam_wt.dtype, cam_wt.device
+    C = cam_wt.shape[0]
+    ftol, ptol = _tolerances(dtype)
+    cam_free_f = cam_free.to(dtype)
+    line_free_f = line_free.to(dtype)
+    w_valid = obs_valid.to(dtype)
+    plan = lm_plan(obs_cam, w_valid, C)
+
+    def cost_only(cw, lo):
+        return _cost_lm(cw, lo, obs, obs_cam, w_valid, baseline, huber_delta,
+                        robust, line_param)
+
+    cost0 = cost_only(cam_wt, line_orth)
+    cam, line, cost = cam_wt, line_orth, cost0
+    radius = torch.tensor(_INIT_RADIUS, dtype=dtype, device=dev)
+    dec = torch.tensor(2.0, dtype=dtype, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    it = cg_total = 0
+    # loop condition of schur_cg.py:423-429, read once per iteration
+    while it < max_iters and bool(torch.logical_and(~done,
+                                                    torch.isfinite(cost))):
+        lam = 1.0 / radius
+        _, Hcc, Hll, gc, gl, Wb = _eval_system_lm(
+            cam.contiguous(), line.contiguous(), obs, obs_cam, w_valid,
+            cam_free_f, line_free_f, baseline, huber_delta, robust,
+            line_param, plan)
+        dc, dl, damp_quad, g_dot_d, n_cg = _solve_step_cg(
+            Hcc, Hll, gc, gl, Wb, obs_cam, plan.cam, lam, cam_free_f,
+            line_free_f, cg_iters, eta)
+        cg_total += n_cg
+
+        cam_new = cam + dc
+        line_new = line + dl
+        cost_new = cost_only(cam_new, line_new)
+
+        model_change = 0.5 * (damp_quad - g_dot_d)
+        rho = (cost - cost_new) / torch.clamp_min(model_change, 1e-300)
+        accept = torch.logical_and(model_change > 0,
+                                   rho > _MIN_RELATIVE_DECREASE)
+        accept = torch.logical_and(accept, torch.isfinite(cost_new))
+
+        tmp = 2.0 * rho - 1.0
+        radius_acc = radius / torch.clamp_min(1.0 - tmp ** 3, 1.0 / 3.0)
+        radius_rej = radius / dec
+        radius_new = torch.where(accept, torch.clamp_max(radius_acc, 1e16),
+                                 torch.clamp_min(radius_rej, 1e-32))
+        dec = torch.where(accept, torch.full_like(dec, 2.0), dec * 2.0)
+
+        fconv = torch.abs(cost - cost_new) <= ftol * cost
+        xnorm = torch.sqrt(torch.sum(cam * cam) + torch.sum(line * line))
+        snorm = torch.sqrt(torch.sum(dc * dc) + torch.sum(dl * dl))
+        pconv = snorm <= ptol * (xnorm + ptol)
+        converged = torch.logical_and(accept, torch.logical_or(fconv, pconv))
+        done = torch.logical_or(converged, ~(snorm > 0))
+
+        cam = torch.where(accept, cam_new, cam)
+        line = torch.where(accept, line_new, line)
+        cost = torch.where(accept, cost_new, cost)
+        radius = radius_new
+        it += 1
+    stats = CGStats(torch.tensor(it, dtype=torch.int32, device=dev), cost0,
+                    cost, torch.tensor(cg_total, dtype=torch.int32,
+                                       device=dev))
+    return cam, line, stats

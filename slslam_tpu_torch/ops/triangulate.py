@@ -9,9 +9,24 @@ degenerate-depth clamp (slam.cpp:206-213).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import geometry as geo
+
+
+def triangulate_lines_host(obs, baseline, *, inverse_depth=0.1,
+                           dtype=torch.float64, device="cpu"):
+    """Host entry (slslam_tpu/ops/triangulate.py:24-51): (n, 8) numpy rows
+    triangulated in ``dtype`` on ``device`` -> (n, 6) float64 numpy.
+
+    The JAX entry pads the row count to a capacity bucket so that XLA does
+    not recompile for every new count; eager PyTorch has no such cost, so
+    the rows go to the device as they are."""
+    x = torch.as_tensor(np.asarray(obs, np.float64).reshape(-1, 8),
+                        dtype=dtype, device=device)
+    out = triangulate_lines(x, baseline, inverse_depth=inverse_depth)
+    return out.cpu().numpy().astype(np.float64)
 
 
 def triangulate_lines(obs, baseline, inverse_depth=0.1):

@@ -2,10 +2,13 @@
 and the port's independence from the JAX package.
 
 slslam_tpu_torch keeps cited copies of what it needs from slslam_tpu.config,
-slslam_tpu.hostgeom, slslam_tpu.sim and slslam_tpu.evalio.writers.  These
-tests hold each copy to its original on the same inputs (exact equality),
-and check that importing every module of the port, chip_smoke and
-profile_replay loads neither jax nor slslam_tpu."""
+slslam_tpu.hostgeom, slslam_tpu.sim, slslam_tpu.evalio.writers and the
+numpy parts of slslam_tpu.engine.refine and slslam_tpu.ops.schur_cg.  These
+tests hold each copy to its original on the same inputs (exact equality;
+the refine's and the packer's copies are held in tests/test_torch_refine.py
+and tests/test_torch_schur_cg.py), and check that importing every module
+of the port, chip_smoke and profile_replay loads neither jax nor
+slslam_tpu."""
 
 import ast
 import dataclasses
@@ -21,10 +24,12 @@ import slslam_tpu_torch
 from slslam_tpu import config as jconfig
 from slslam_tpu import hostgeom as jhost
 from slslam_tpu import sim as jsim
+from slslam_tpu.engine import refine as jrefine
 from slslam_tpu.evalio import writers as jwriters
 from slslam_tpu_torch import config as tconfig
 from slslam_tpu_torch import hostgeom as thost
 from slslam_tpu_torch import sim as tsim
+from slslam_tpu_torch.engine import refine as trefine
 from slslam_tpu_torch.evalio import writers as twriters
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -98,6 +103,44 @@ def test_hostgeom_identical():
                       thost.Pose.from_wt(b.wt()))):
             np.testing.assert_array_equal(x.R, y.R)
             np.testing.assert_array_equal(x.t, y.t)
+
+
+def _lines_av(n=64, seed=6):
+    """(cp, dv) lines, with a zero row and the orth gimbal lock (the
+    normal along z) among them."""
+    rng = np.random.default_rng(seed)
+    av = rng.standard_normal((n, 6))
+    av[0] = 0.0
+    av[1] = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+    av[2] = [0.0, 2.0, 0.0, -3.0, 0.0, 0.0]
+    return av
+
+
+def test_orth_conversions_identical():
+    av = _lines_av()
+    np.testing.assert_array_equal(thost._normalize_rows(av),
+                                  jhost._normalize_rows(av))
+    orth = jhost.av_to_orth_np(av)
+    np.testing.assert_array_equal(thost.av_to_orth_np(av), orth)
+    np.testing.assert_array_equal(thost.orth_to_av_np(orth[3:]),
+                                  jhost.orth_to_av_np(orth[3:]))
+
+
+def test_two_view_lines_identical():
+    """The refine's wide-baseline init on random keyframe pairs, with
+    near-parallel planes (first and last keyframe alike) among them."""
+    rng = np.random.default_rng(7)
+    L, K = 48, 12
+    first, last = (rng.standard_normal((L, 8)) * 0.3 for _ in range(2))
+    last[:4] = first[:4]
+    kf0 = rng.integers(0, K, L)
+    kf1 = rng.integers(0, K, L)
+    R = np.stack([jhost.rodrigues(w) for w in rng.standard_normal((K, 3))])
+    t = rng.standard_normal((K, 3))
+    fb = _lines_av(L, seed=8)
+    np.testing.assert_array_equal(
+        trefine._two_view_lines(first, last, kf0, kf1, R, t, fb),
+        jrefine._two_view_lines(first, last, kf0, kf1, R, t, fb))
 
 
 def test_trajectory_writers_identical(tmp_path):

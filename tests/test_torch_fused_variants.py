@@ -18,6 +18,7 @@ import torch
 from slslam_tpu.ops import pallas_kernels as pk
 from slslam_tpu.ops import residuals as jres
 from slslam_tpu.ops import schur_ba as jba
+from slslam_tpu_torch import kernel_checks
 from slslam_tpu_torch.ops import kernels
 
 torch.set_num_threads(1)
@@ -190,3 +191,56 @@ def test_a_plan_of_another_shape_is_refused(perm_len, offsets_len, dtype):
                             torch.device("cpu"))
     good = kernels.segment_plan(torch.zeros(1600, dtype=torch.int32), 81)
     kernels._check_plan("segment_sum", good, 1600, 81, torch.device("cpu"))
+
+
+def test_lm_twin_matches_full():
+    """``lm`` is ``full`` with the coupling kept per row: the same cost,
+    Hcc, Hll, gc and gl, and W is the pair sum of Wb; Wb is zero on the
+    invalid rows."""
+    args = _case(27)
+    t = _torch(args)
+    oc, ol, wv = args[3], args[4], args[5]
+    C, L = args[0].shape[0], args[1].shape[0]
+    full = kernels.fused_eval(*t)
+    lm = kernels.fused_eval(*t, variant="lm")
+    assert lm[5].shape == (len(oc), 6, 4)
+    for name, a, b in zip(("cost", "Hcc", "Hll", "gc", "gl"), full, lm):
+        np.testing.assert_array_equal(b.numpy(), a.numpy(), err_msg=name)
+    W = np.zeros((C * L, 6, 4))
+    np.add.at(W, oc * L + ol, lm[5].numpy())
+    np.testing.assert_allclose(W.reshape(C, L, 6, 4), full[5].numpy(),
+                               rtol=1e-12, atol=1e-15)
+    assert np.all(lm[5].numpy()[wv <= 0] == 0.0)
+
+
+def test_lm_plan_and_check_case():
+    """``ba_plan(..., "lm")`` groups the valid rows by camera and by line,
+    and the chip's line-major check case has padding rows at the end of
+    its buckets, which the camera plan drops."""
+    args = _case(28)
+    t = _torch(args)
+    oc, ol, wv = args[3], args[4], args[5]
+    C, L = args[0].shape[0], args[1].shape[0]
+    plan = kernels.ba_plan(t[3], t[4], t[5], C, L, "lm")
+    assert plan.pair is None
+    ok = wv > 0
+    for p, key, P in ((plan.cam, oc, C), (plan.line, ol, L)):
+        perm, offsets = _plan_ref(np.where(ok, key, P), P)
+        np.testing.assert_array_equal(p.perm.numpy(), perm)
+        np.testing.assert_array_equal(p.offsets.numpy(), offsets)
+
+    case = kernel_checks.k2_lm_case(torch.float64, "cpu", C=40, L=6, kL=32,
+                                    pad_frac=0.05)
+    wv = case["w_valid"].numpy().reshape(6, 32)
+    assert 0 < np.sum(wv == 0) and np.all(np.diff(wv, axis=1) <= 0)
+    oc = case["obs_cam"].numpy().reshape(6, 32)
+    for l in range(6):
+        cams = oc[l][wv[l] > 0]
+        assert len(set(cams)) == len(cams)         # one row per pair
+    np.testing.assert_array_equal(case["obs_line"].numpy(),
+                                  np.repeat(np.arange(6), 32))
+    plan = kernels.ba_plan(case["obs_cam"], case["obs_line"],
+                           case["w_valid"], 40, 6, "lm")
+    dropped = kernel_checks.dropped_rows(plan.cam).numpy()
+    np.testing.assert_array_equal(np.sort(dropped),
+                                  np.flatnonzero(wv.reshape(-1) == 0))
