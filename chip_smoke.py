@@ -31,11 +31,8 @@ Phases, each printing one JSON line:
    CPU (twins), fed the same Gumbel noise: identical keyframes and RANSAC
    scores, trajectories within 1e-6 m, every replay variant of K2
    launched; then the global refine of that replay (``method="cg"``, three
-   rounds) on CUDA and on the CPU from the same trajectory: the same LM
-   iterations, poses within 1e-6 m, K2 ``lm`` launched.  The one-round
-   refine, which ends at its LM cap in the slice's slow-descent valley, is
-   recorded (CUDA vs CPU, and the CPU against itself from an input
-   shifted by 1e-12 m) but not checked;
+   rounds, the bench's) on CUDA and on the CPU from the same trajectory:
+   the same LM iterations, poses within 1e-6 m, K2 ``lm`` launched;
 4. the slice at full size: BatchSlam on CUDA in float32 with the bench's
    configuration, 400 frames of render seed 4, timed after a 20-frame
    warm-up: 400 keyframes, 74 landmarks, finite poses, raw ATE <= 0.55 m
@@ -64,7 +61,6 @@ CUDA device it exits 1 at once.
 """
 
 import contextlib
-import dataclasses
 import json
 import re
 import subprocess
@@ -78,8 +74,6 @@ K1_SOURCE = "slslam_tpu_torch/csrc/segment_sum.cu"
 K2_SOURCE = "slslam_tpu_torch/csrc/fused_eval.cu"
 JAC_HELPERS = ("lba_residual_jac_batch", "lba_residual_jac_cam_batch",
                "lba_residual_jac_line_batch")
-# K2's variants in the order of csrc/fused_eval.cu's template argument
-VARIANTS = ("full", "cams", "lines", "lm")
 REFINE_ROUNDS = 3
 
 
@@ -138,35 +132,10 @@ def graph_ms(fn, launches=GRAPH_LAUNCHES, replays=5):
     return start.elapsed_time(end) / (launches * replays)
 
 
-def bench_config(dtype):
-    """bench.py's batch configuration (bench.py:115-120)."""
-    from slslam_tpu_torch.config import SlamConfig
-    return dataclasses.replace(
-        SlamConfig(), compute_dtype=dtype, kf_rot_thr=1e-9, kf_tr_thr=1e-9,
-        obs_buckets=(80, 2048), line_buckets=(80, 2048),
-        corr_buckets=(80, 256))
-
-
-def house(cfg, n, seed=4):
-    from slslam_tpu_torch.sim import (StereoLineRenderer, house_segments,
-                                      wave_trajectory)
-    poses = wave_trajectory(num_frames=400)[:n]
-    ren = StereoLineRenderer(house_segments(), cfg.camera, noise_px=0.2,
-                             seed=seed)
-    return [ren.observe(T) for T in poses], poses
-
-
-def raw_ate(traj, poses_gt):
-    """Mean position error, both rooted at frame 0 (bench.py:66-75)."""
-    import numpy as np
-    T0 = poses_gt[0]
-    return float(np.mean([np.linalg.norm(T.t - (G @ T0.inv()).inv().t)
-                          for T, G in zip(traj, poses_gt)]))
-
-
 def ptxas_summary(reports):
     """{kernel: {"registers", "spill_stores", "spill_loads"}} from nvcc's
     -Xptxas -v reports (mangled names shortened)."""
+    from slslam_tpu_torch.ops.kernels import VARIANTS
     out = {}
     dtypes = {"f": "f32", "d": "f64"}
     for text in reports.values():
@@ -331,18 +300,20 @@ def phase2(dev, rec):
 
 
 def variant_launches(launches):
+    from slslam_tpu_torch.ops.kernels import VARIANTS
     return {v: launches[f"fused_eval/{v}"] for v in VARIANTS}
 
 
 def phase3(dev):
     import numpy as np
     import torch
+    from slslam_tpu_torch.bench import bench_config, workload
     from slslam_tpu_torch.engine.batch import BatchSlam
     from slslam_tpu_torch.engine.refine import global_refine
     from slslam_tpu_torch.ops import kernels
     from slslam_tpu_torch.ops.ransac import gumbel_noise
     cfg = bench_config("float64")
-    frames, _ = house(cfg, 60)
+    frames, _ = workload(cfg, 60, 4)
     H = cfg.ransac_num_hypotheses
 
     def hook(fidx, Lp=81):
@@ -377,44 +348,27 @@ def phase3(dev):
     if idle:
         raise AssertionError(f"phase 3: K2 variants never launched: {idle}")
 
-    # the refine of that replay, CUDA against CPU, from one trajectory.
-    # With one round the joint solve stops at its LM cap in the slice's
-    # slow-descent valley, where the result follows rounding: recorded
-    # beside the CPU's own response to a 1e-12 m shift of the input, not
-    # checked.  Later rounds start near the basin and converge: the
-    # bench's three rounds are checked.
-    from slslam_tpu_torch.hostgeom import Pose
-
-    def refine(device, rounds, traj=gpu.trajectory):
+    # the refine of that replay with the bench's rounds, CUDA against CPU,
+    # from one trajectory.  (A single round stops at its LM cap in the
+    # slice's slow-descent valley, short of convergence, so its two results
+    # are not held to 1e-6 m: PERF.md, PR 3.)
+    def refine(device):
         t0 = time.perf_counter()
-        ref = global_refine(frames, gpu.is_kf, traj, config=cfg,
-                            rounds=rounds, method="cg", device=device)
+        ref = global_refine(frames, gpu.is_kf, gpu.trajectory, config=cfg,
+                            rounds=REFINE_ROUNDS, method="cg", device=device)
         return ref, time.perf_counter() - t0
 
-    def apart(a, b):
-        return max(float(np.linalg.norm(x.t - y.t))
-                   for x, y in zip(a.trajectory, b.trajectory))
-
-    shifted = [Pose(T.R, T.t + (1e-12 if k else 0.0))
-               for k, T in enumerate(gpu.trajectory)]
-    one = {d: refine(d, 1)[0] for d in (dev, "cpu")}
-    one_shifted = refine("cpu", 1, shifted)[0]
     kernels.reset_launch_counts()
-    ref_gpu, t_gpu = refine(dev, REFINE_ROUNDS)
+    ref_gpu, t_gpu = refine(dev)
     n_lm = kernels.launch_counts["fused_eval/lm"]
-    ref_cpu, t_cpu = refine("cpu", REFINE_ROUNDS)
-    dref = apart(ref_gpu, ref_cpu)
+    ref_cpu, t_cpu = refine("cpu")
+    dref = max(float(np.linalg.norm(x.t - y.t))
+               for x, y in zip(ref_gpu.trajectory, ref_cpu.trajectory))
     log({"phase": 3, "refine": f"cg, {REFINE_ROUNDS} rounds, float64",
          "max_traj_diff_m": dref,
          "lm_iterations_cuda": ref_gpu.iterations,
          "lm_iterations_cpu": ref_cpu.iterations,
-         "lm_launches": n_lm, "wall_cuda_s": t_gpu, "wall_cpu_s": t_cpu,
-         "one_round": {"max_traj_diff_m": apart(one[dev], one["cpu"]),
-                       "cpu_vs_cpu_input_shifted_1e-12_m":
-                           apart(one["cpu"], one_shifted),
-                       "lm_iterations": [one[dev].iterations,
-                                         one["cpu"].iterations,
-                                         one_shifted.iterations]}})
+         "lm_launches": n_lm, "wall_cuda_s": t_gpu, "wall_cpu_s": t_cpu})
     if not dref <= 1e-6:
         raise AssertionError(f"phase 3: refined trajectories differ by "
                              f"{dref} m")
@@ -450,10 +404,11 @@ def counting(modules, names, count, when=lambda *a, **k: True):
 def phase4(dev):
     import numpy as np
     import torch
+    from slslam_tpu_torch.bench import ate, bench_config, workload
     from slslam_tpu_torch.engine import batch
     from slslam_tpu_torch.ops import kernels, residuals
     cfg = bench_config("float32")
-    frames, poses = house(cfg, 400)
+    frames, poses = workload(cfg, 400, 4)
     eng = batch.BatchSlam(cfg, device=dev)
     # warm-up outside the timed window: the first float32 frames load their
     # CUDA modules and solver state
@@ -472,13 +427,13 @@ def phase4(dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.launch_counts)
-    ate = raw_ate(res.trajectory, poses)
+    ate_raw = ate(res.trajectory, poses)
     lm_iters = int(np.sum(res.per_frame["ba_iters"]))
     by_variant = variant_launches(launches)
     jac_cuda = sum(calls[k] for k in JAC_HELPERS)
     out = {"phase": 4, "frames": len(frames), "kf": res.kf_count,
            "landmarks": res.stats["num_landmarks"], "wall_s": wall,
-           "kf_per_s": res.kf_count / wall, "ate_raw_m": ate,
+           "kf_per_s": res.kf_count / wall, "ate_raw_m": ate_raw,
            "avg_ba_iterations": res.stats["avg_num_iterations"],
            "window_lm_iterations": lm_iters, "lines_gn_calls":
            calls["lines_gn"], "window_ba_calls": calls["local_ba"],
@@ -491,7 +446,7 @@ def phase4(dev):
         "400 keyframes": res.kf_count == 400,
         "74 landmarks": res.stats["num_landmarks"] == 74,
         "finite poses": finite,
-        "raw ATE <= 0.55 m": ate <= 0.55,
+        "raw ATE <= 0.55 m": ate_raw <= 0.55,
         "full launches == LM iterations": by_variant["full"] == lm_iters,
         "lines launches == lines_gn_iters x calls":
             by_variant["lines"] == cfg.lines_gn_iters * calls["lines_gn"],
@@ -519,6 +474,7 @@ def phase5(dev, rec, replay):
     """The global refine at full width on phase 4's replay."""
     import numpy as np
     import torch
+    from slslam_tpu_torch.bench import ate, bench_config
     from slslam_tpu_torch.engine import refine
     from slslam_tpu_torch.ops import kernels, residuals, schur_cg
     frames, poses, res, replay_wall, launches4, roles4 = replay
@@ -558,7 +514,7 @@ def phase5(dev, rec, replay):
     n_lm = sum(i for i, _ in solves)
     n_cg = sum(c for _, c in solves)
     jac_cuda = sum(calls[k] for k in JAC_HELPERS)
-    ate_raw, ate_ref = raw_ate(res.trajectory, poses), raw_ate(
+    ate_raw, ate_ref = ate(res.trajectory, poses), ate(
         ref.trajectory, poses)
     T0 = ref.trajectory[0]
     log({"phase": 5, "refine": f"cg, {REFINE_ROUNDS} rounds, float32",
@@ -613,8 +569,6 @@ def main():
               file=sys.stderr)
         sys.exit(1)
     from slslam_tpu_torch.ops import kernels
-    if kernels.VARIANTS != VARIANTS:
-        raise AssertionError(f"K2 variants {kernels.VARIANTS} != {VARIANTS}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -629,7 +583,7 @@ def main():
                ("segment_sum", K1_SOURCE,
                 "slslam_tpu/ops/pallas_kernels.py:64"),
                *((f"fused_eval/{v}", K2_SOURCE, k2_line)
-                 for v in VARIANTS))}
+                 for v in kernels.VARIANTS))}
     smi = phase0(dev)
     phase1(dev, rec)
     phase2(dev, rec)

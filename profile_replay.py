@@ -49,8 +49,7 @@ import time
 
 import numpy as np
 
-from chip_smoke import (bench_config, cuda_ms, graph_ms, house, log,
-                        nvidia_smi, raw_ate)
+from chip_smoke import cuda_ms, graph_ms, log, nvidia_smi
 
 PROFILED_FRAMES = 30
 REFINE_ROUNDS = 3
@@ -248,6 +247,7 @@ def main():
     if opts.kernels is not None:
         kernel_times(os.path.abspath(opts.kernels))
         return
+    from slslam_tpu_torch.bench import ate, bench_config, workload
     from slslam_tpu_torch.engine.batch import BatchSlam
     from slslam_tpu_torch.engine.refine import global_refine
     from slslam_tpu_torch.ops import kernels
@@ -256,7 +256,7 @@ def main():
     torch.cuda.set_device(dev)
     kernels.load_library()
     cfg = bench_config("float32")
-    frames, poses = house(cfg, 400)
+    frames, poses = workload(cfg, 400, 4)
     eng = BatchSlam(cfg, device=dev)
     sync = torch.cuda.synchronize
     log({"part": 0, "nvidia_smi": nvidia_smi(), "torch": torch.__version__,
@@ -284,7 +284,7 @@ def main():
         q = np.quantile(walls, [0.1, 0.5, 0.9])
         log({"part": 1, "run": rep, "wall_s": wall, "cpu_s": cpu,
              "kf_per_s": res.kf_count / wall,
-             "ate_raw_m": raw_ate(res.trajectory, poses),
+             "ate_raw_m": ate(res.trajectory, poses),
              "window_lm_iterations": int(np.sum(res.per_frame["ba_iters"])),
              "frame_ms": {"first": walls[0] * 1e3, "p10": q[0] * 1e3,
                           "p50": q[1] * 1e3, "p90": q[2] * 1e3,
@@ -292,7 +292,7 @@ def main():
                           "max_at": int(np.argmax(walls))},
              "refine_wall_s": refine_wall, "refine_cpu_s": refine_cpu,
              "refine_iterations": ref.iterations,
-             "ate_refined_m": raw_ate(ref.trajectory, poses),
+             "ate_refined_m": ate(ref.trajectory, poses),
              "replay_refine_kf_per_s": res.kf_count / (wall + refine_wall)})
     log({"part": 1, "run0_vs_run1": same_run(runs[0], runs[1])})
 

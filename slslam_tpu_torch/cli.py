@@ -25,16 +25,10 @@ import time
 import numpy as np
 
 
-def _ate(traj, poses_gt):
-    """Mean position error against ground truth, both rooted at frame 0."""
-    T0 = poses_gt[0]
-    return float(np.mean([np.linalg.norm(T.t - (G @ T0.inv()).inv().t)
-                          for T, G in zip(traj, poses_gt)]))
-
-
 def cmd_sim(args):
     import torch
 
+    from .bench import ate
     from .config import SlamConfig
     from .engine.batch import BatchSlam
     from .engine.refine import global_refine
@@ -64,7 +58,7 @@ def cmd_sim(args):
     stats["device"] = str(eng.device)
     stats["dtype"] = str(eng.dtype)
     if res.kf_count:
-        stats["ate_m"] = _ate(res.trajectory, [poses_gt[i] for i in kf_idx])
+        stats["ate_m"] = ate(res.trajectory, [poses_gt[i] for i in kf_idx])
     print(f"replayed {len(frames)} frames -> {res.kf_count} keyframes in "
           f"{wall:.2f}s on {eng.device}")
     ref = None
@@ -79,7 +73,7 @@ def cmd_sim(args):
         stats["refine_final_cost"] = ref.final_cost
         stats["refine_num_cams"] = ref.num_cams
         stats["refine_num_obs"] = ref.num_obs
-        stats["refine_ate_m"] = _ate(ref.trajectory,
+        stats["refine_ate_m"] = ate(ref.trajectory,
                                      [poses_gt[i] for i in kf_idx])
     if args.out:
         os.makedirs(args.out, exist_ok=True)

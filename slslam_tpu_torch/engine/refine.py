@@ -127,12 +127,15 @@ def _init_candidates_host(s: GlobalProblemStructure, trajectory: List[Pose],
 
 
 def init_problem_values(s: GlobalProblemStructure, trajectory: List[Pose],
-                        cfg: SlamConfig, dtype=torch.float64, device="cpu"):
+                        cfg: SlamConfig, dtype=None, device="cuda"):
     """Initial (cam_wt, line_orth), numpy float64, for the given trajectory
     estimate (refine.py:130-154): per line, the better of the stereo
     triangulation at its first keyframe and the wide-baseline two-view
     line of its first and last keyframes.  The triangulation and the
-    scoring run in ``dtype`` on ``device``."""
+    scoring run in ``dtype`` (default ``cfg.compute_dtype``) on ``device``
+    (default the card; ``"cpu"`` only when asked)."""
+    dtype = resolve_dtype(cfg.compute_dtype if dtype is None else dtype)
+    device = resolve_device(device)
     lines_cam = triangulate_lines_host(
         s.first_obs, cfg.camera.baseline, inverse_depth=cfg.inverse_depth,
         dtype=dtype, device=device)
@@ -155,9 +158,8 @@ def build_global_problem(frames: List[Dict[int, np.ndarray]],
     if K != len(trajectory):
         raise ValueError(f"{K} keyframes but {len(trajectory)} poses")
     s = build_problem_structure(frames, is_kf, min_obs=min_obs)
-    cam_wt, line_orth = init_problem_values(
-        s, trajectory, cfg, resolve_dtype(cfg.compute_dtype),
-        resolve_device(device))
+    cam_wt, line_orth = init_problem_values(s, trajectory, cfg,
+                                            device=device)
     return (cam_wt, line_orth, s.obs, s.ocam, s.olin, s.feat_ids)
 
 

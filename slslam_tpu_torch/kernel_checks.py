@@ -218,15 +218,24 @@ def check_k2(dtype, device, variant="full"):
     launched twice with the variant's plan, at the variant's main-path
     shape.  Returns {output: (normalized error, max abs error)}; raises if
     an error exceeds K2_TOL or if the two launches differ in any bit.  For
-    ``lm`` the first launch's output lands in memory that held NaNs (the
-    caching allocator hands the freed block back), and every Wb row that
-    the plan drops must come out exactly zero."""
+    ``lm`` on the card the first launch's output must land in memory that
+    held NaNs (the caching allocator hands the freed block back; the check
+    raises if it handed back another), and every Wb row that the plan drops
+    must come out exactly zero."""
     args, plan = k2_variant_case(variant, dtype, device)
-    if variant == "lm":
+    nan_ptr = None
+    if variant == "lm" and args["obs"].is_cuda:
         C, L, O = K2_SHAPES[variant]
         n = 1 + C * 42 + L * 20 + O * 24 + C
-        torch.full((n,), float("nan"), dtype=dtype, device=device)
+        torch.cuda.empty_cache()            # the NaN block: the only free one
+        nan_ptr = torch.full((n,), float("nan"), dtype=dtype,
+                             device=device).data_ptr()
     got = kernels.fused_eval(**args, variant=variant, plan=plan)
+    if (nan_ptr is not None
+            and got[0].untyped_storage().data_ptr() != nan_ptr):
+        raise AssertionError(f"fused_eval/lm {dtype}: the output did not land "
+                             "in the NaN-filled block, so the zero-row check "
+                             "would prove nothing")
     again = kernels.fused_eval(**args, variant=variant, plan=plan)
     ref = kernels.fused_eval_twin(**args, variant=variant)
     errs = {}

@@ -13,18 +13,20 @@ import numpy as np
 import torch
 
 from .. import geometry as geo
+from .. import resolve_device
 
 
 def triangulate_lines_host(obs, baseline, *, inverse_depth=0.1,
-                           dtype=torch.float64, device="cpu"):
+                           dtype=torch.float64, device="cuda"):
     """Host entry (slslam_tpu/ops/triangulate.py:24-51): (n, 8) numpy rows
-    triangulated in ``dtype`` on ``device`` -> (n, 6) float64 numpy.
+    triangulated in ``dtype`` on ``device`` (default the card; ``"cpu"``
+    only when asked) -> (n, 6) float64 numpy.
 
     The JAX entry pads the row count to a capacity bucket so that XLA does
     not recompile for every new count; eager PyTorch has no such cost, so
     the rows go to the device as they are."""
     x = torch.as_tensor(np.asarray(obs, np.float64).reshape(-1, 8),
-                        dtype=dtype, device=device)
+                        dtype=dtype, device=resolve_device(device))
     out = triangulate_lines(x, baseline, inverse_depth=inverse_depth)
     return out.cpu().numpy().astype(np.float64)
 

@@ -21,6 +21,7 @@ from slslam_tpu.sim import StereoLineRenderer, house_segments, wave_trajectory
 from slslam_tpu_torch import hostgeom as thost
 from slslam_tpu_torch.config import SlamConfig as TSlamConfig
 from slslam_tpu_torch.engine import refine as tref
+from slslam_tpu_torch.ops.triangulate import triangulate_lines_host
 
 torch.set_num_threads(1)
 
@@ -161,3 +162,25 @@ def test_cuda_without_a_card_raises(house):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):
         tref.global_refine(frames, is_kf, ttraj, config=TCFG)
+
+
+@pytest.mark.parametrize("entry", ["init_problem_values",
+                                   "build_global_problem",
+                                   "triangulate_lines_host"])
+def test_host_entries_default_to_the_card(house, entry):
+    """Called without a device, the line init and the host triangulation
+    ask for the card, and raise here rather than run on the CPU."""
+    frames, is_kf, _, ttraj = house
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    s = tref.build_problem_structure(frames, is_kf)
+    call = {
+        "init_problem_values":
+            lambda: tref.init_problem_values(s, ttraj, TCFG),
+        "build_global_problem":
+            lambda: tref.build_global_problem(frames, is_kf, ttraj, TCFG),
+        "triangulate_lines_host":
+            lambda: triangulate_lines_host(s.first_obs, 0.12),
+    }[entry]
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()
