@@ -50,10 +50,23 @@ Phases, each printing one JSON line:
    two plans per solve, no torch.func Jacobian on CUDA tensors.  It prints
    the wall, LM and PCG iterations, (O, kL, kC), raw and refined ATE and
    the replay + refine keyframes per second of this seed.
+6. loop-closure mode at full size: bench.py's lc workload (the village,
+   170 frames, every frame a keyframe, f32) through
+   ``BatchSlamLC.run`` with the batched recognizer and the merged 2-round
+   refine, as ``BENCH_MODE=lc`` drives it: at least 7 loop closures (the
+   JAX package's documented gate), every merged track on one world
+   segment, final ATE below the odometry ATE; K2 ``cams``, ``full`` and
+   ``lm`` and K1 each launched in the post-pass; a second post-pass over
+   the same replay and descriptors repeats bit for bit (trajectory,
+   closures, merges).  Then the post-pass in f64 on that replay, CUDA
+   against CPU, both fed the same span noise: identical closures, merges
+   and PGO iterations, trajectories within 1e-6 m.  It prints the stage
+   walls and ``refine_pick``.
 
-The launch counts of the kernels' record are those of the two main-path
-runs, phase 4's replay and phase 5's refine, each counted from zero (the
-split is under ``launches_by_path``).  Then a line with the card's name
+The launch counts of the kernels' record are those of the three
+main-path runs, phase 4's replay, phase 5's refine and phase 6's loop
+closure run, each counted from zero (the split is under
+``launches_by_path``).  Then a line with the card's name
 and power limit, a line with the kernels' record, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed
 check raises: the script exits non-zero and prints no result.  Without a
@@ -562,6 +575,137 @@ def phase5(dev, rec, replay):
             r["launches_at_shape"] = counts[r["role"]]
 
 
+def _span_hook(seed=0x10C):
+    """Span-solve noise made on the CPU from (seed, keyframe), the same on
+    every device: the CUDA and CPU post-passes of phase 6 take it."""
+    import torch
+    from slslam_tpu_torch.ops.ransac import gumbel_noise
+
+    def hook(k, H, N):
+        g = torch.Generator().manual_seed((seed << 32) + int(k))
+        return gumbel_noise(g, (H, N), torch.float64, "cpu")
+    return hook
+
+
+def _lc_summary(out):
+    return {k: out.stats[k] for k in (
+        "num_loop_candidates", "num_loop_spans", "num_loop_closures",
+        "num_merged_tracks", "pgo_iterations", "num_joint_solves",
+        "refine_pick")}
+
+
+def phase6(dev):
+    """Loop-closure mode at full size; returns its launch counts."""
+    import numpy as np
+    import torch
+    from slslam_tpu_torch import bench
+    from slslam_tpu_torch.engine import batch_lc
+    from slslam_tpu_torch.ops import kernels
+    cfg = bench.lc_config("float32")
+    frames, poses, src, assigner, vocab, params = bench.lc_workload(cfg)
+    # the main path: BatchSlamLC.run, as BENCH_MODE=lc drives it
+    eng = bench.lc_engine(cfg, src, vocab, params, dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.run(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    res = out.base
+    gt = [poses[i] for i in np.flatnonzero(res.is_kf)]
+    ate_odo = bench.ate(res.trajectory, gt)
+    ate_fin = bench.ate(out.trajectory, gt)
+    seg = assigner.track_to_seg
+    bad_merges = [a for a, r in out.merged_fids.items() if seg[a] != seg[r]]
+    # two post-passes over that replay with one descriptor list: the
+    # post-pass's own launches and solve shapes, and its repeat bit for bit
+    pre = [src(i, sorted(fr)) for i, fr in enumerate(frames)]
+    shapes = {}
+
+    def record(orig):
+        def wrapped(cam, line, obs, *a, **k):
+            key = (f"{tuple(cam.shape)[0]}x{tuple(line.shape)[0]}x"
+                   f"{tuple(obs.shape)[0]}"
+                   + (" priors" if k.get("prior_edges") is not None else ""))
+            shapes[key] = shapes.get(key, 0) + 1
+            return orig(cam, line, obs, *a, **k)
+        return wrapped
+
+    posts = []
+    for rep in range(2):
+        kernels.reset_launch_counts()
+        saved = batch_lc.local_ba
+        if rep == 0:
+            batch_lc.local_ba = record(saved)
+        try:
+            t0 = time.perf_counter()
+            p = bench.lc_engine(cfg, src, vocab, params, dev).post_pass(
+                frames, res, pre_desc=pre)
+            torch.cuda.synchronize()
+        finally:
+            batch_lc.local_ba = saved
+        posts.append((p, time.perf_counter() - t0,
+                      dict(kernels.launch_counts)))
+    (p1, w1, post_launches), (p2, _, _) = posts
+    repeat = (p1.stats["num_loop_closures"] == p2.stats["num_loop_closures"]
+              and p1.merged_fids == p2.merged_fids
+              and all(np.array_equal(a.R, b.R) and np.array_equal(a.t, b.t)
+                      for a, b in zip(p1.trajectory, p2.trajectory)))
+    log({"phase": 6, "workload": f"village lc, {len(frames)} frames, float32",
+         "nvidia_smi": nvidia_smi(), "kf": res.kf_count, "wall_s": wall,
+         "kf_per_s": res.kf_count / wall, **_lc_summary(out),
+         "ate_odometry_m": ate_odo, "ate_final_m": ate_fin,
+         "refine_loop_frac": out.stats["refine_loop_frac"],
+         "walls": {k: out.stats[k] for k in bench.LC_WALLS},
+         "wall_confirm_stages": out.stats["wall_confirm_stages"],
+         "launches": launches, "post_pass_wall_s": w1,
+         "post_pass_launches": post_launches,
+         "post_pass_local_ba_shapes_CxLxO": shapes,
+         "refine_C_L_O": [p1.refined.num_cams, p1.refined.num_lines,
+                          p1.refined.num_obs],
+         "post_pass_summary": _lc_summary(p1),
+         "repeat_bit_for_bit": repeat})
+    by_variant = variant_launches(post_launches)
+    checks = {
+        ">= 7 loop closures": out.stats["num_loop_closures"] >= 7,
+        "merges on one world segment": not bad_merges,
+        "final ATE < odometry ATE": ate_fin < ate_odo,
+        "post-pass launched cams, full, lm": min(
+            by_variant[v] for v in ("cams", "full", "lm")) > 0,
+        "post-pass launched K1": post_launches["segment_sum"] > 0,
+        "post-pass repeats bit for bit": repeat,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 6 failed: {failed}")
+
+    # the post-pass in f64 on that replay, CUDA against CPU
+    cfg64 = bench.lc_config("float64")
+    cmp = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        o = bench.lc_engine(cfg64, src, vocab, params, d,
+                            gumbel_hook=_span_hook()).post_pass(
+            frames, res, pre_desc=pre)
+        cmp[str(d)] = (o, time.perf_counter() - t0)
+    (og, tg), (oc, tc) = cmp[str(dev)], cmp["cpu"]
+    dtraj = max(float(np.linalg.norm(a.t - b.t))
+                for a, b in zip(og.trajectory, oc.trajectory))
+    log({"phase": 6, "post_pass": "float64, CUDA vs CPU",
+         "cuda": _lc_summary(og), "cpu": _lc_summary(oc),
+         "max_traj_diff_m": dtraj, "wall_cuda_s": tg, "wall_cpu_s": tc,
+         "refine_wall_cpu_s": oc.stats["wall_refine_s"],
+         "ate_final_m": bench.ate(og.trajectory, gt)})
+    if _lc_summary(og) != _lc_summary(oc):
+        raise AssertionError("phase 6: f64 post-pass decisions differ "
+                             "between CUDA and CPU")
+    if og.merged_fids != oc.merged_fids:
+        raise AssertionError("phase 6: f64 merges differ")
+    if not dtraj <= 1e-6:
+        raise AssertionError(f"phase 6: f64 trajectories differ by {dtraj} m")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -589,6 +733,10 @@ def main():
     phase2(dev, rec)
     phase3(dev)
     phase5(dev, rec, phase4(dev))
+    launches6 = phase6(dev)
+    for name, n in launches6.items():
+        rec[name]["launches"] += n
+        rec[name]["launches_by_path"]["lc"] = n
     if "jax" in sys.modules or any(m == "slslam_tpu" or
                                    m.startswith("slslam_tpu.")
                                    for m in sys.modules):

@@ -1,16 +1,18 @@
-"""slslam_tpu_torch: the batch replay engine and global refine of slslam_tpu
-in PyTorch + CUDA.
+"""slslam_tpu_torch: the batch replay engine, global refine and deferred
+loop closure of slslam_tpu in PyTorch + CUDA.
 
-A port of the device-resident batch engine (``slslam_tpu.engine.batch``)
-and of the post-replay global refine (``slslam_tpu.engine.refine``) to
-PyTorch, with the BA evaluates and the index reductions written by hand in
-CUDA C++ for Hopper (``csrc/``, bound through ctypes in
-``ops/kernels.py``), and the bench entry ``python3 -m
+A port of the device-resident batch engine (``slslam_tpu.engine.batch``),
+of the post-replay global refine (``slslam_tpu.engine.refine``) and of
+loop-closure mode (``slslam_tpu.engine.batch_lc``, ``loopclosure``,
+``ops.pose_graph``) to PyTorch, with the BA evaluates and the index
+reductions written by hand in CUDA C++ for Hopper (``csrc/``, bound through
+ctypes in ``ops/kernels.py``), and the bench entry ``python3 -m
 slslam_tpu_torch.bench``.  The JAX package stays the reference; this
 package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``slslam_tpu``: what it needs of the reference's modules it keeps as cited
-copies (``config``, ``hostgeom``, ``sim``, ``evalio``, and the numpy parts
-of ``engine/refine`` and ``ops/schur_cg``).
+copies (``config``, ``hostgeom``, ``sim``, ``evalio``, the vocabulary
+training, and the numpy parts of ``engine/refine``, ``ops/schur_cg`` and
+``engine/batch_lc``).
 
 Every public function takes tensors on an explicit device; constructors
 take an explicit ``device`` and ``dtype``.  Nothing falls back to the CPU

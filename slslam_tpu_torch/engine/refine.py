@@ -16,14 +16,17 @@ JAX module's (tests/test_torch_refine.py holds it to the original); the
 triangulation and the candidate scoring run in the solve's dtype on the
 solve's device.
 
-Not ported: the odometry-chain prior and ``prior_edges`` (they need
-``pose_graph``, ROADMAP P9; asking for them raises NotImplementedError),
-and the vmapped multi-sequence ``global_refine_many``.
+The pose priors follow the JAX module: the odometry-chain prior (on by
+``detect_band_visibility`` for band-visibility maps, or forced) and
+``prior_edges`` (the deferred loop closure's loop edges) enter the CG
+solve, and a dense request with priors is overridden to CG with a warning.
+Not ported: the vmapped multi-sequence ``global_refine_many``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -293,7 +296,8 @@ def global_refine(frames: List[Dict[int, np.ndarray]],
                   method: str = "auto",
                   odometry_prior="auto",
                   prior_edges=None,
-                  device="cuda") -> RefineResult:
+                  device="cuda",
+                  _prior_c: Optional[np.ndarray] = None) -> RefineResult:
     """Globally bundle-adjust a replayed sequence (refine.py:382-557):
     ``ref = global_refine(frames, res.is_kf, res.trajectory, cfg)``.
 
@@ -304,9 +308,13 @@ def global_refine(frames: List[Dict[int, np.ndarray]],
     ``"dense"`` or ``"auto"`` (dense exactly where the JAX package picks it
     on its CPU backend: tensors on the CPU and a small problem).
 
-    ``odometry_prior`` (``"auto"``: on for band-visibility maps) and
-    ``prior_edges`` raise NotImplementedError when they would apply: the
-    pose priors come with ``pose_graph`` (ROADMAP P9)."""
+    ``odometry_prior`` (``"auto"``: on for band-visibility maps,
+    ``detect_band_visibility``; or True / False) fuses the odometry chain
+    as a weak pose prior, its constraints from ``trajectory`` or from
+    ``_prior_c`` (the deferred loop closure passes the replay's odometry
+    measurements); ``prior_edges`` (ei, ej, c) adds general pose
+    constraints with the same sigmas (``cfg.refine_prior_sigma_rot/t``).
+    Both run on the CG path (refine.py:405-462)."""
     cfg = config or SlamConfig()
     dev = resolve_device(device)
     dtype = resolve_dtype(cfg.compute_dtype)
@@ -314,10 +322,15 @@ def global_refine(frames: List[Dict[int, np.ndarray]],
         raise ValueError(f"unknown refine method {method!r}")
     if odometry_prior == "auto":
         odometry_prior, _ = detect_band_visibility(frames, is_kf)
-    if odometry_prior or prior_edges is not None:
-        raise NotImplementedError(
-            "global_refine: the odometry prior and prior_edges are not "
-            "ported yet (ROADMAP.md Queue 1, P9, with pose_graph)")
+    if not odometry_prior:
+        # the gate governs an explicitly passed _prior_c too (refine.py:
+        # 420-428): it supplies the constraint values, not whether the
+        # prior applies
+        _prior_c = None
+    elif _prior_c is None and len(trajectory) > 1:
+        _prior_c = np.stack([
+            (trajectory[i + 1].inv() @ trajectory[i]).wt()
+            for i in range(len(trajectory) - 1)])
 
     s = build_problem_structure(frames, is_kf, min_obs=min_obs)
     K = len(trajectory)
@@ -328,9 +341,16 @@ def global_refine(frames: List[Dict[int, np.ndarray]],
             trajectory=list(trajectory), lines_world=np.zeros((0, 6)),
             feature_ids=[], initial_cost=0.0, final_cost=0.0, iterations=0,
             num_cams=K, num_lines=0, num_obs=0)
+    priors = _prior_c is not None or prior_edges is not None
+    if priors and method == "dense":
+        # the priors live on the CG path only: never drop them silently
+        warnings.warn("global_refine: pose priors require the CG solver; "
+                      "overriding method='dense' -> 'cg'")
+        method = "cg"
     if method == "auto":
         small = K * L <= _DENSE_W_LIMIT and K <= _DENSE_CAM_LIMIT
-        method = "dense" if small and dev.type == "cpu" else "cg"
+        method = ("dense" if small and dev.type == "cpu" and not priors
+                  else "cg")
 
     def t(a, dt=dtype):
         return torch.as_tensor(a, dtype=dt, device=dev)
@@ -345,12 +365,19 @@ def global_refine(frames: List[Dict[int, np.ndarray]],
         obs_t, ocam_t = t(p.obs), t(p.obs_cam, torch.int32)
         ovalid_t = t(p.obs_valid, torch.bool)
         lfree_t = torch.ones(L, dtype=torch.bool, device=dev)
+        prior = None if _prior_c is None else t(_prior_c)
+        pedges = None
+        if prior_edges is not None:
+            ei, ej, ec = prior_edges
+            pedges = (t(ei, torch.int64), t(ej, torch.int64), t(ec))
 
         def solve(cam_in, line_in, cfree, iters):
             return global_ba_cg(
                 t(cam_in), t(line_in), obs_t, ocam_t, ovalid_t,
                 t(cfree, torch.bool), lfree_t, bl, hd, robust=cfg.robust,
-                max_iters=iters, line_param=cfg.line_param)
+                max_iters=iters, line_param=cfg.line_param, prior_c=prior,
+                prior_sigma_rot=cfg.refine_prior_sigma_rot,
+                prior_sigma_t=cfg.refine_prior_sigma_t, prior_edges=pedges)
     else:
         # the dense path pads the lines to their capacity bucket as the JAX
         # package does: the padded rows enter LM's step-size test (the

@@ -126,10 +126,14 @@ def gumbel_noise(generator, shape, dtype, device):
     return -torch.log(-torch.log(torch.clamp(u, tiny, 1.0)))
 
 
-def first_argmax(x):
-    """Index of the FIRST maximum of a 1-D tensor (jnp.argmax's rule)."""
-    ar = torch.arange(x.shape[0], device=x.device)
-    return torch.min(torch.where(x == torch.max(x), ar, x.shape[0]))
+def first_argmax(x, dim=-1):
+    """Index of the FIRST maximum along ``dim`` (jnp.argmax's rule)."""
+    n = x.shape[dim]
+    shape = [1] * x.dim()
+    shape[dim] = n
+    ar = torch.arange(n, device=x.device).reshape(shape)
+    m = torch.amax(x, dim=dim, keepdim=True)
+    return torch.amin(torch.where(x == m, ar, n), dim=dim)
 
 
 def ransac_stage(obs0, obs1, lines_av, valid, baseline, error_thr,

@@ -16,8 +16,12 @@ lines-GN through ``lines``; lines-GN's trial cost reduces with K1
 (``segment_sum``).  Each solve builds its segment plan once and hands it to
 every LM iteration.  On CPU tensors the kernels' plain twins run.
 
-Not ported (they raise NotImplementedError): ``cam_anchor_sigmas`` and
-``prior_edges`` (ROADMAP.md, Queue 1 open items).
+``prior_edges`` fuses pairwise pose constraints into the normal equations
+(the deferred loop closure's joint span polish): their residuals and
+Jacobians are ``ops/pose_graph.py``'s, their per-camera sums and their
+off-diagonal coupling blocks in the reduced camera system are K1 sums over
+a fixed block key.  Not ported (it raises NotImplementedError):
+``cam_anchor_sigmas`` (ROADMAP.md, Queue 1 open items).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from typing import NamedTuple
 import torch
 
 from .kernels import ba_plan, fused_eval, segment_sum
+from .pose_graph import (block_plan, edge_residual, edge_residual_jac,
+                         edge_system)
 from .residuals import lba_residual_batch, robust_weights
 
 _MIN_DIAG = 1e-6
@@ -50,15 +56,39 @@ class BAStats(NamedTuple):
     final_cost: torch.Tensor
 
 
-def _unported(cam_anchor_sigmas, prior_edges):
+def _unported(cam_anchor_sigmas):
     if cam_anchor_sigmas is not None:
         raise NotImplementedError(
             "cam_anchor_sigmas is not ported yet (ROADMAP.md Queue 1, "
             "open items of the port)")
-    if prior_edges is not None:
-        raise NotImplementedError(
-            "prior_edges (Hoff) is not ported yet (ROADMAP.md Queue 1, "
-            "open items of the port)")
+
+
+class PriorEdges(NamedTuple):
+    """Pose-prior edges of one solve: T_j ~ c T_i, residuals scaled by
+    ``scale`` (E, 6), and the K1 plans of their block sums."""
+
+    ei: torch.Tensor      # (E,) long
+    ej: torch.Tensor
+    c: torch.Tensor       # (E, 6)
+    scale: torch.Tensor   # (E, 6)
+    plan: object          # pose_graph.BlockPlan over the solve's cameras
+
+
+def prior_terms(pe: PriorEdges, cw, cam_free_f):
+    """(cost, gc_e (C,6), Hcc_e (C,6,6), Hoff (E,6,6)) of the prior edges at
+    cameras ``cw`` (schur_ba.py:499-515, schur_cg.py:376-386)."""
+    r, J1, J2 = edge_residual_jac(cw[pe.ei], cw[pe.ej], pe.c)
+    r = r * pe.scale
+    J1 = J1 * pe.scale[:, :, None] * cam_free_f[pe.ei, None, None]
+    J2 = J2 * pe.scale[:, :, None] * cam_free_f[pe.ej, None, None]
+    Hd, g, Hoff = edge_system(pe.plan, J1, J2, r)
+    return 0.5 * torch.sum(r * r), g, Hd, Hoff
+
+
+def prior_cost(pe: PriorEdges, cw):
+    """The prior edges' cost alone (the trial points' cost)."""
+    re = edge_residual(cw[pe.ei], cw[pe.ej], pe.c)
+    return 0.5 * torch.sum((re * pe.scale) ** 2)
 
 
 def _masked_cost(r, w_valid, huber_delta, robust):
@@ -136,9 +166,12 @@ def _cho_solve_equilibrated(S, rhs):
     return _cholesky_solve_batched(Sn, rhs * di) * di
 
 
-def _solve_step(Hcc, Hll, gc, gl, W, lam, cam_free_f, line_free_f):
+def _solve_step(Hcc, Hll, gc, gl, W, lam, cam_free_f, line_free_f,
+                Hoff=None, prior=None):
     """Solve (H + lam D^2) delta = -g by Schur elimination of the lines
-    (schur_ba.py:357-409, without the prior-edge Hoff)."""
+    (schur_ba.py:357-409).  ``Hoff`` (E,6,6): the prior edges' camera-camera
+    coupling, placed in the dense reduced system by one K1 sum over the
+    ``"offdiag"`` plan of ``prior`` (a ``PriorEdges``)."""
     C = Hcc.shape[0]
     L = Hll.shape[0]
     dtype, dev = Hcc.dtype, Hcc.device
@@ -159,6 +192,12 @@ def _solve_step(Hcc, Hll, gc, gl, W, lam, cam_free_f, line_free_f):
     S = S.reshape(C, 6, C, 6)
     ar = torch.arange(C, device=dev)
     S[ar, :, ar, :] += Hcc_d
+    if Hoff is not None:
+        E = Hoff.shape[0]
+        rows = torch.cat([Hoff, Hoff.transpose(1, 2)]).reshape(2 * E, 36)
+        off = segment_sum(rows.contiguous(), prior.plan.hkey, C * C,
+                          plan=prior.plan.hplan)
+        S = S + off.reshape(C, C, 6, 6).permute(0, 2, 1, 3)
     S = S.reshape(C * 6, C * 6)
     rhs = -gc.reshape(-1) + Xm @ gl.reshape(-1)
 
@@ -227,6 +266,27 @@ def lines_gn(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
     return lo
 
 
+def make_prior_edges(prior_edges, C, dtype, device, blocks=None):
+    """``PriorEdges`` from (ei, ej, c, sig) arrays or tensors over C
+    cameras; ``blocks``: the block plan's kind (``"offdiag"`` for the dense
+    reduced system, None for the PCG)."""
+    ei, ej, c, sig = (torch.as_tensor(x, device=device) for x in prior_edges)
+    E = ei.shape[0]
+    if not (ej.shape == (E,) and tuple(c.shape) == (E, 6)
+            and tuple(sig.shape) == (E, 2)):
+        raise ValueError(f"prior_edges shapes {tuple(ei.shape)}, "
+                         f"{tuple(ej.shape)}, {tuple(c.shape)}, "
+                         f"{tuple(sig.shape)}; expected (E,), (E,), (E, 6), "
+                         "(E, 2)")
+    ei, ej, sig = ei.long(), ej.long(), sig.to(dtype)
+    # per-edge (sigma_rot, sigma_t) -> (E, 6) residual weights
+    # (schur_ba.py:494-497)
+    scale = torch.cat([1.0 / sig[:, 0:1].repeat(1, 3),
+                       1.0 / sig[:, 1:2].repeat(1, 3)], dim=1)
+    return PriorEdges(ei, ej, c.to(dtype), scale,
+                      block_plan(ei, ej, C, blocks))
+
+
 def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
              cam_free, line_free, baseline, huber_delta, robust=True,
              max_iters=10, line_param="orth", pose_only=False,
@@ -236,9 +296,13 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
     treats every line as fixed and never builds the line blocks (the
     motion-only BA, slam.cpp:578-675).
 
+    ``prior_edges``: (ei (E,), ej (E,), c (E,6), sig (E,2)), pairwise pose
+    constraints T_j ~ c T_i with per-edge (sigma_rot, sigma_t)
+    (schur_ba.py:435-447); pad with zero-weight self-edges (sig ~ 1e9).
+
     Returns (cam_wt', line_orth', BAStats); ``BAStats.iterations`` counts
     LM steps, accepted or not."""
-    _unported(cam_anchor_sigmas, prior_edges)
+    _unported(cam_anchor_sigmas)
     dtype, dev = cam_wt.dtype, cam_wt.device
     ftol, ptol = _tolerances(dtype)
     cam_free_f = cam_free.to(dtype)
@@ -249,11 +313,22 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
     oc, ol = obs_cam.long(), obs_line.long()
     plan = ba_plan(obs_cam, obs_line, w_valid, cam_wt.shape[0],
                    line_orth.shape[0], "cams" if pose_only else "full")
+    prior = None
+    if prior_edges is not None:
+        if pose_only:
+            raise ValueError("prior_edges needs the full solve path, not "
+                             "pose_only")
+        prior = make_prior_edges(prior_edges, cam_wt.shape[0], dtype, dev,
+                                 blocks="offdiag")
 
     def cost_only(cw, lo):
         r = lba_residual_batch(cw[oc], lo[ol], obs, baseline,
                                line_param=line_param)
-        return torch.sum(_masked_cost(r, w_valid, huber_delta, robust))
+        cost = torch.sum(_masked_cost(r, w_valid, huber_delta, robust))
+        if prior is not None:
+            # the full (unmasked) residual, as prior_terms' cost
+            cost = cost + prior_cost(prior, cw)
+        return cost
 
     cost0 = cost_only(cam_wt, line_orth)
     cam, line, cost = cam_wt, line_orth, cost0
@@ -278,8 +353,13 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
                 cam.contiguous(), line.contiguous(), obs, obs_cam, obs_line,
                 w_valid, cam_free_f, line_free_f, baseline, huber_delta,
                 robust, line_param, plan)
+            Hoff = None
+            if prior is not None:
+                _, gc_e, Hcc_e, Hoff = prior_terms(prior, cam, cam_free_f)
+                Hcc, gc = Hcc + Hcc_e, gc + gc_e
             dc, dl, damp_quad, g_dot_d = _solve_step(
-                Hcc, Hll, gc, gl, W, lam, cam_free_f, line_free_f)
+                Hcc, Hll, gc, gl, W, lam, cam_free_f, line_free_f, Hoff,
+                prior)
 
         cam_new = cam + dc
         line_new = line + dl

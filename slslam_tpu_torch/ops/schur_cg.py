@@ -23,9 +23,11 @@ the camera plan, so ``cam_perm`` is not an argument of the solver.  The LM
 and PCG loops are Python loops that read their condition from the device
 once per iteration.  On CPU tensors the kernels' plain twins run.
 
-Not ported (they raise NotImplementedError): the pose priors ``prior_c``
-and ``prior_edges``, which need ``pose_graph``'s edge residual (ROADMAP
-P9).
+The pose priors (``prior_c``, the odometry chain, and ``prior_edges``,
+general pose constraints such as loop edges) take their residuals and
+Jacobians from ``ops/pose_graph.py``; their per-camera sums, and their
+off-diagonal coupling in each PCG matvec, are K1 sums over the edges'
+node plan.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from .kernels import ba_plan, fused_eval, segment_sum
 from .residuals import lba_residual_batch, robust_weights
 from .schur_ba import (_INIT_RADIUS, _MAX_DIAG, _MIN_DIAG,
                        _MIN_RELATIVE_DECREASE, _inv4_equilibrated,
-                       _tolerances)
+                       _tolerances, make_prior_edges, prior_cost,
+                       prior_terms)
 
 
 # ---------------------------------------------------------------------------
@@ -178,11 +181,14 @@ def _cost_lm(cam_wt, line_orth, obs, obs_cam, w_valid, baseline,
 # ---------------------------------------------------------------------------
 
 def _solve_step_cg(Hcc, Hll, gc, gl, Wb, obs_cam, cam_plan, lam,
-                   cam_free_f, line_free_f, cg_iters, eta):
+                   cam_free_f, line_free_f, cg_iters, eta, Hoff=None,
+                   prior=None):
     """(H + lam D^2) delta = -g by PCG on the reduced camera system
-    (schur_cg.py:173-277, without the prior's Hoff).  ``cam_plan``: the
-    camera plan of the valid rows; every per-camera sum over rows is one
-    K1 call over it.  Returns (dc, dl, damp_quad, g_dot_d, PCG
+    (schur_cg.py:173-277).  ``cam_plan``: the camera plan of the valid
+    rows; every per-camera sum over rows is one K1 call over it.  ``Hoff``
+    (E,6,6): the pose priors' coupling of cameras (ei, ej) of ``prior``
+    (a ``schur_ba.PriorEdges``), added to each matvec by one K1 sum over
+    the edges' node plan.  Returns (dc, dl, damp_quad, g_dot_d, PCG
     iterations)."""
     C = Hcc.shape[0]
     L, kL = Wb.shape[:2]
@@ -208,13 +214,20 @@ def _solve_step_cg(Hcc, Hll, gc, gl, Wb, obs_cam, cam_plan, lam,
         return out.reshape((C,) + rows.shape[2:])
 
     def matvec(x):
-        """S x with S = Hcc_d - W Binv W^T, fixed cameras -> identity."""
+        """S x with S = Hcc_d - W Binv W^T (+ the priors' coupling of
+        cameras (ei, ej)), fixed cameras -> identity."""
         xm = x * m
         y = torch.einsum("lkab,lka->lkb", Wb, xm[oc])      # (L,kL,4)
         z = torch.sum(y, dim=1)                            # (L,4)
         w = torch.einsum("lab,lb->la", Binv, z)            # (L,4)
         u = torch.einsum("lkab,lb->lka", Wb, w)            # (L,kL,6)
         Sx = torch.einsum("cab,cb->ca", Hcc_d, xm) - cam_sum(u)
+        if Hoff is not None:
+            rows = torch.cat([torch.einsum("eab,eb->ea", Hoff, xm[prior.ej]),
+                              torch.einsum("eba,eb->ea", Hoff,
+                                           xm[prior.ei])])
+            Sx = Sx + segment_sum(rows.contiguous(), prior.plan.gkey, C,
+                                  plan=prior.plan.gplan)
         return Sx * m + x * (1.0 - m)
 
     # rhs = -gc + W Binv gl
@@ -270,10 +283,41 @@ def _solve_step_cg(Hcc, Hll, gc, gl, Wb, obs_cam, cam_plan, lam,
     return dc, dl, damp_quad, g_dot_d, it
 
 
+def _prior_edges(C, prior_c, prior_edges, sigma_rot, sigma_t, dtype, dev):
+    """The chain prior and the general edges as one ``PriorEdges`` block
+    (schur_cg.py:322-366): chain edges (i, i + 1) first, with the scalar
+    sigmas; ``prior_edges`` (ei, ej, c) with the scalar sigmas, or
+    (ei, ej, c, sig) with per-edge (sigma_rot, sigma_t)."""
+    parts = []
+
+    def sig_of(n):
+        return torch.tensor([[sigma_rot, sigma_t]], dtype=dtype,
+                            device=dev).expand(n, 2)
+
+    if prior_c is not None:
+        c = torch.as_tensor(prior_c, dtype=dtype, device=dev)
+        if tuple(c.shape) != (C - 1, 6):
+            raise ValueError(f"prior_c has shape {tuple(c.shape)}, expected "
+                             f"({C - 1}, 6)")
+        ar = torch.arange(C, device=dev)
+        parts.append((ar[:-1], ar[1:], c, sig_of(C - 1)))
+    if prior_edges is not None:
+        if len(prior_edges) not in (3, 4):
+            raise ValueError("prior_edges is (ei, ej, c) or (ei, ej, c, sig)")
+        ei, ej, c = (torch.as_tensor(x, device=dev) for x in prior_edges[:3])
+        sig = (torch.as_tensor(prior_edges[3], dtype=dtype, device=dev)
+               if len(prior_edges) == 4 else sig_of(ei.shape[0]))
+        parts.append((ei.long(), ej.long(), c.to(dtype), sig))
+    if not parts:
+        return None
+    return make_prior_edges(
+        [torch.cat([p[k] for p in parts]) for k in range(4)], C, dtype, dev)
+
+
 def global_ba_cg(cam_wt, line_orth, obs, obs_cam, obs_valid, cam_free,
                  line_free, baseline, huber_delta, robust=True, max_iters=25,
                  cg_iters=100, eta=1e-2, line_param="orth", prior_c=None,
-                 prior_edges=None):
+                 prior_sigma_rot=0.02, prior_sigma_t=0.1, prior_edges=None):
     """LM bundle adjustment on the bucketed layout with matrix-free Schur
     (global_ba_cg_impl, schur_cg.py:280-472).
 
@@ -282,12 +326,13 @@ def global_ba_cg(cam_wt, line_orth, obs, obs_cam, obs_valid, cam_free,
     function's ``cam_perm`` / ``cam_perm_valid`` are not taken: the solve
     builds its camera plan from obs_cam and obs_valid.
 
+    ``prior_c`` (C-1, 6): odometry-chain constraints (camera i+1 relative
+    to camera i), weighted 1/``prior_sigma_rot`` and 1/``prior_sigma_t``;
+    ``prior_edges``: general pose constraints (ei, ej, c) with the same
+    sigmas, or (ei, ej, c, sig (E, 2)) with per-edge sigmas (the JAX
+    docstring, schur_cg.py:293-312, says why).
+
     Returns (cam', line', CGStats)."""
-    if prior_c is not None or prior_edges is not None:
-        raise NotImplementedError(
-            "global_ba_cg: the pose priors prior_c / prior_edges need "
-            "pose_graph's edge residual, which is not ported yet (ROADMAP.md "
-            "Queue 1, P9)")
     dtype, dev = cam_wt.dtype, cam_wt.device
     C = cam_wt.shape[0]
     ftol, ptol = _tolerances(dtype)
@@ -295,10 +340,15 @@ def global_ba_cg(cam_wt, line_orth, obs, obs_cam, obs_valid, cam_free,
     line_free_f = line_free.to(dtype)
     w_valid = obs_valid.to(dtype)
     plan = lm_plan(obs_cam, w_valid, C)
+    prior = _prior_edges(C, prior_c, prior_edges, prior_sigma_rot,
+                         prior_sigma_t, dtype, dev)
 
     def cost_only(cw, lo):
-        return _cost_lm(cw, lo, obs, obs_cam, w_valid, baseline, huber_delta,
+        cost = _cost_lm(cw, lo, obs, obs_cam, w_valid, baseline, huber_delta,
                         robust, line_param)
+        if prior is not None:
+            cost = cost + prior_cost(prior, cw)
+        return cost
 
     cost0 = cost_only(cam_wt, line_orth)
     cam, line, cost = cam_wt, line_orth, cost0
@@ -314,9 +364,13 @@ def global_ba_cg(cam_wt, line_orth, obs, obs_cam, obs_valid, cam_free,
             cam.contiguous(), line.contiguous(), obs, obs_cam, w_valid,
             cam_free_f, line_free_f, baseline, huber_delta, robust,
             line_param, plan)
+        Hoff = None
+        if prior is not None:
+            _, gc_e, Hcc_e, Hoff = prior_terms(prior, cam, cam_free_f)
+            Hcc, gc = Hcc + Hcc_e, gc + gc_e
         dc, dl, damp_quad, g_dot_d, n_cg = _solve_step_cg(
             Hcc, Hll, gc, gl, Wb, obs_cam, plan.cam, lam, cam_free_f,
-            line_free_f, cg_iters, eta)
+            line_free_f, cg_iters, eta, Hoff, prior)
         cg_total += n_cg
 
         cam_new = cam + dc

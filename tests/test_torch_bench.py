@@ -40,6 +40,56 @@ def test_bench_prints_the_contract_on_cpu(capsys):
     assert "serial" in rec["mode"]
 
 
+@pytest.mark.parametrize("as_extra", [False, True])
+def test_bench_lc_prints_the_contract_on_cpu(capsys, as_extra):
+    """BENCH_MODE=lc's record (bench.py:435-463) at 16 frames of the
+    village orbit: too short to close a loop, long enough to run every
+    stage of the post-pass that has input."""
+    value, extra = bench.bench_lc("cpu", dtype="float64", budget_s=0.0,
+                                  num_frames=16, arc=0.4, as_extra=as_extra)
+    out, err = capsys.readouterr()
+    rec = json.loads(err.strip().splitlines()[-1])
+    if as_extra:
+        assert out == ""
+        assert (rec["metric"], rec["unit"]) == ("lc_keyframes_per_s", "kf/s")
+        assert rec["value"] == round(value, 3) > 0
+    else:
+        head = json.loads(out.strip().splitlines()[-1])
+        assert head["metric"] == "keyframes_per_s"
+        assert head["value"] == round(value, 3) > 0
+        assert rec == json.loads(json.dumps(extra))
+    for key in ("keyframes", "cold_s", "warm_s", "num_loop_closures",
+                "num_merged_tracks", "ate_odometry_m", "ate_final_m",
+                "wall_breakdown", "wall_confirm_stages", "device",
+                "refine_pick"):
+        assert key in rec, key
+    assert rec["mode"] == "lc" and rec["keyframes"] == 16
+    assert set(rec["wall_breakdown"]) == set(bench.LC_WALLS)
+    assert math.isfinite(rec["ate_final_m"])
+
+
+@pytest.mark.parametrize("env,expected", [
+    (dict(), ["batch", "lc extra"]),
+    (dict(BENCH_LC="0"), ["batch"]),
+    (dict(BENCH_BUDGET_S="150"), ["batch"]),
+    (dict(BENCH_MODE="lc"), ["lc"])])
+def test_main_runs_the_modes(monkeypatch, env, expected):
+    """The batch mode appends the lc line when 200 s of the budget remain
+    and BENCH_LC is not 0 (bench.py:555-566); BENCH_MODE=lc runs lc
+    alone."""
+    ran = []
+    monkeypatch.setattr(bench, "bench_batch",
+                        lambda *a, **k: ran.append("batch"))
+    monkeypatch.setattr(bench, "bench_lc", lambda *a, **k: ran.append(
+        "lc extra" if k.get("as_extra") else "lc"))
+    for key in ("BENCH_LC", "BENCH_BUDGET_S", "BENCH_MODE"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    bench.main()
+    assert ran == expected
+
+
 def test_bench_needs_a_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -2,12 +2,16 @@
 and the port's independence from the JAX package.
 
 slslam_tpu_torch keeps cited copies of what it needs from slslam_tpu.config,
-slslam_tpu.hostgeom, slslam_tpu.sim, slslam_tpu.evalio.writers and the
-numpy parts of slslam_tpu.engine.refine and slslam_tpu.ops.schur_cg.  These
-tests hold each copy to its original on the same inputs (exact equality;
-the refine's and the packer's copies are held in tests/test_torch_refine.py
-and tests/test_torch_schur_cg.py), and check that importing every module
-of the port, chip_smoke and profile_replay loads neither jax nor
+slslam_tpu.hostgeom, slslam_tpu.sim (house, wave, renderer, village,
+tracks), slslam_tpu.evalio.writers, the numpy parts of
+slslam_tpu.engine.refine, slslam_tpu.ops.schur_cg and
+slslam_tpu.engine.batch_lc, and the numpy vocabulary training of
+slslam_tpu.loopclosure.voctree.  These tests hold each copy to its
+original on the same inputs (exact equality; the refine's and the packer's
+copies are held in tests/test_torch_refine.py and
+tests/test_torch_schur_cg.py, the loop closure's joint problem packing in
+tests/test_torch_batch_lc.py), and check that importing every module of
+the port, chip_smoke and profile_replay loads neither jax nor
 slslam_tpu."""
 
 import ast
@@ -24,13 +28,17 @@ import slslam_tpu_torch
 from slslam_tpu import config as jconfig
 from slslam_tpu import hostgeom as jhost
 from slslam_tpu import sim as jsim
+from slslam_tpu.engine import batch_lc as jlc
 from slslam_tpu.engine import refine as jrefine
 from slslam_tpu.evalio import writers as jwriters
+from slslam_tpu.loopclosure import voctree as jvoc
 from slslam_tpu_torch import config as tconfig
 from slslam_tpu_torch import hostgeom as thost
 from slslam_tpu_torch import sim as tsim
+from slslam_tpu_torch.engine import batch_lc as tlc
 from slslam_tpu_torch.engine import refine as trefine
 from slslam_tpu_torch.evalio import writers as twriters
+from slslam_tpu_torch.loopclosure import voctree as tvoc
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -153,6 +161,121 @@ def test_trajectory_writers_identical(tmp_path):
                                   jwriters.trajectory_rows(poses))
 
 
+@pytest.mark.parametrize("n_houses,ring", [(6, 9.0), (8, 10.0)])
+def test_village_identical(n_houses, ring):
+    np.testing.assert_array_equal(tsim.village_segments(n_houses, ring),
+                                  jsim.village_segments(n_houses, ring))
+    kw = dict(num_frames=60, arc=2.7 * np.pi, orbit_radius=3.8)
+    for a, b in zip(tsim.village_trajectory(**kw),
+                    jsim.village_trajectory(**kw), strict=True):
+        np.testing.assert_array_equal(a.R, b.R)
+        np.testing.assert_array_equal(a.t, b.t)
+
+
+def test_tracks_identical():
+    """TrackIdAssigner's id churn and SegmentDescriptorSource's stream on
+    the village's observations (ids lost and re-detected)."""
+    segs = jsim.village_segments(6, 9.0)
+    poses = jsim.village_trajectory(num_frames=40, arc=2.7 * np.pi,
+                                    orbit_radius=3.8)
+    ren = jsim.StereoLineRenderer(segs, jconfig.CameraConfig(),
+                                  noise_px=0.3, seed=1)
+    ja, ta = jsim.TrackIdAssigner(max_gap=5), tsim.TrackIdAssigner(max_gap=5)
+    js = jsim.SegmentDescriptorSource(ja, len(segs), noise=0.01, seed=7)
+    ts = tsim.SegmentDescriptorSource(ta, len(segs), noise=0.01, seed=7)
+    for i, T in enumerate(poses):
+        obs = ren.observe(T)
+        a, b = ja.assign(i, obs), ta.assign(i, obs)
+        assert sorted(a) == sorted(b)
+        ids = sorted(a) + [10 ** 6]          # an unknown id: random
+        np.testing.assert_array_equal(ts(i, ids), js(i, ids))
+    assert ta.track_to_seg == ja.track_to_seg
+    np.testing.assert_array_equal(ts.base, js.base)
+
+
+def test_vocabulary_training_identical():
+    rng = np.random.default_rng(3)
+    d = rng.standard_normal((700, 72)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    np.testing.assert_array_equal(tvoc.build_vocabulary(d, seed=2,
+                                                        kmeans_iters=2),
+                                  jvoc.build_vocabulary(d, seed=2,
+                                                        kmeans_iters=2))
+    for n in (0, 5, 40, 300):       # empty, sparse and full nodes
+        a = jvoc._kmeans(d[:n], 40, 3, np.random.default_rng(n))
+        b = tvoc._kmeans(d[:n], 40, 3, np.random.default_rng(n))
+        np.testing.assert_array_equal(b, a)
+
+
+def _detections(seed=4):
+    """Raw detections (k, old_k, match) with runs, gaps and a jump."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in list(range(20, 34)) + [36, 37, 60, 61, 62, 90]:
+        old = int(k * 0.3) + int(rng.integers(0, 2))
+        out.append((k, old, {int(x): int(x) % 97 for x in
+                             rng.integers(0, 500, rng.integers(3, 12))}))
+    return out
+
+
+@pytest.mark.parametrize("window", [3, 5, 10])
+def test_span_candidates_and_merge_identical(window):
+    c = _detections()
+    assert tlc._span_candidates(c, window) == jlc._span_candidates(c, window)
+    matches = [m for _, _, m in c] + [{5: 3, 3: 1}, {1: 5}]
+    assert tlc._merge_fids(matches) == jlc._merge_fids(matches)
+
+
+@pytest.mark.parametrize("scale", [0.0, 0.01, 0.5])
+def test_consistency_check_identical(scale):
+    rng = np.random.default_rng(6)
+    poses = rng.standard_normal((12, 6)) * 0.5
+    edges = []
+    for i, j in ((0, 11), (2, 7), (5, 6)):
+        rel = (jhost.Pose.from_wt(poses[j])
+               @ jhost.Pose.from_wt(poses[i]).inv()).wt()
+        edges.append((i, j, rel + rng.standard_normal(6) * scale))
+    cfg_j, cfg_t = jconfig.SlamConfig(), tconfig.SlamConfig()
+    assert (tlc._consistency_broken(poses, edges, cfg_t)
+            == jlc._consistency_broken(poses, edges, cfg_j))
+
+
+class _Prep:
+    """The fields of a joint problem that the alignment reads."""
+
+    def __init__(self, M_odo, new_k):
+        self.M_odo = M_odo
+        self.new_ks = [new_k]
+
+
+def test_ransac_align_identical():
+    """The line-cloud alignment on a cloud and its rigid image plus noise,
+    with unusable rows (no observation, zero direction) among them."""
+    rng = np.random.default_rng(8)
+    L = 40
+    lines_a = np.concatenate([rng.standard_normal((L, 3)) * 3,
+                              rng.standard_normal((L, 3))], axis=1)
+    S = jhost.Pose(jhost.rodrigues(np.array([0.1, -0.3, 0.2])),
+                   np.array([1.0, 0.5, -2.0]))
+    lines_b = np.concatenate([lines_a[:, :3] @ S.R.T + S.t,
+                              lines_a[:, 3:] @ S.R.T], axis=1)
+    lines_b += rng.standard_normal(lines_b.shape) * 0.01
+    lines_b[3, 3:] = 0.0
+    cnt_a = rng.integers(0, 4, L)
+    cnt_b = rng.integers(1, 4, L)
+    cfg_j, cfg_t = jconfig.SlamConfig(), tconfig.SlamConfig()
+    M = jhost.Pose(S.R, S.t + 0.3)
+    a = jlc._ransac_align(_Prep(M, 17), lines_a, cnt_a, lines_b, cnt_b, cfg_j)
+    b = tlc._ransac_align(_Prep(thost.Pose(M.R, M.t), 17), lines_a, cnt_a,
+                          lines_b, cnt_b, cfg_t)
+    assert len(a) == len(b) > 200
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(y.R, x.R)
+        np.testing.assert_array_equal(y.t, x.t)
+    assert tlc._ransac_align(_Prep(M, 1), lines_a[:2], cnt_a[:2],
+                             lines_b[:2], cnt_b[:2], cfg_t) is None
+
+
 def _port_modules():
     mods = [slslam_tpu_torch.__name__]
     for info in pkgutil.walk_packages(slslam_tpu_torch.__path__,
@@ -178,6 +301,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[0] == "0", proc.stdout
     assert len(mods) > 15
+    for m in ("slslam_tpu_torch.loopclosure",
+              "slslam_tpu_torch.ops.pose_graph",
+              "slslam_tpu_torch.engine.batch_lc"):
+        assert m in mods, m
 
 
 def _sources():

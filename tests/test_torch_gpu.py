@@ -149,3 +149,171 @@ def test_refine_cg_on_gpu_matches_cpu(cuda_device):
     d = max(float(np.linalg.norm(a.t - b.t))
             for a, b in zip(gpu.trajectory, cpu.trajectory))
     assert d <= 1e-6, d
+
+
+def _ring(K=24, drift=0.5, seed=0):
+    """A drifted odometry ring with a perfect loop edge (the graph of
+    tests/test_batch_lc.py): (poses (K,6) world->cam, ei, ej, c, free)."""
+    import numpy as np
+
+    from slslam_tpu_torch.hostgeom import Pose
+    rng = np.random.default_rng(seed)
+    gt = []
+    for i in range(K):
+        a = 2 * np.pi * i / K
+        gt.append(Pose(np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                                 [-np.sin(a), 0, np.cos(a)]]),
+                       np.array([3 * np.sin(a), 0.0, 3 - 3 * np.cos(a)])))
+    edges = []
+    for g in range(K - 1):
+        w = (gt[g + 1] @ gt[g].inv()).wt()
+        w[3:] += drift * (rng.standard_normal(3) * 0.2 + 1.0) * 0.1
+        edges.append(w)
+    T = Pose()
+    poses = [T.wt()]
+    for g in range(K - 1):
+        T = Pose.from_wt(edges[g]) @ T
+        poses.append(T.wt())
+    ei = np.concatenate([np.arange(K - 1), [0]]).astype(np.int32)
+    ej = np.concatenate([np.arange(1, K), [K - 1]]).astype(np.int32)
+    c = np.concatenate([np.stack(edges), [(gt[-1] @ gt[0].inv()).wt()]])
+    free = np.ones(K, bool)
+    free[0] = False
+    return np.stack(poses), ei, ej, c, free
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("huber_delta", [None, 0.25])
+def test_pose_graph_opt_on_gpu_matches_cpu(cuda_device, huber_delta):
+    """The PGO on the card (edge blocks summed by K1) against the CPU in
+    float64: the same LM iterations, poses within 1e-9, and a repeat on
+    the card that agrees bit for bit."""
+    from slslam_tpu_torch.ops.pose_graph import pose_graph_opt
+    poses, ei, ej, c, free = _ring()
+
+    def run(dev):
+        t = lambda a: torch.as_tensor(a, device=dev)       # noqa: E731
+        return pose_graph_opt(t(poses), t(ei), t(ej), t(c),
+                              torch.ones(len(ei), dtype=torch.bool,
+                                         device=dev), t(free),
+                              huber_delta=huber_delta)
+
+    before = kernels.launch_counts["segment_sum"]
+    g, sg = run(cuda_device)
+    assert kernels.launch_counts["segment_sum"] > before
+    g2, _ = run(cuda_device)
+    c_, sc = run("cpu")
+    assert int(sg.iterations) == int(sc.iterations) > 1
+    assert torch.equal(g, g2)
+    assert float(torch.max(torch.abs(g.cpu() - c_))) <= 1e-9
+
+
+def _blocked_ba(C=8, L=64, O=256):
+    """A random window BA problem in the camera-major blocked layout (the
+    recipe of __graft_entry__._example_ba_problem, in numpy), float64, and
+    prior edges: a strong chain, a weak loop edge, zero-weight padding."""
+    import numpy as np
+
+    from slslam_tpu_torch.hostgeom import Pose
+    rng = np.random.default_rng(0)
+    cam = rng.standard_normal((C, 6)) * 0.1
+    line = rng.standard_normal((L, 4)) * 0.2
+    line[:, 3] = 0.3 + 0.1 * rng.random(L)
+    obs = rng.standard_normal((O, 8)) * 0.2
+    oc = rng.integers(0, C, O)
+    ol = rng.integers(0, L, O)
+    _, first = np.unique(oc * L + ol, return_index=True)
+    OmC = max(8, -(-int(np.bincount(oc[first], minlength=C).max()) // 8) * 8)
+    ob_b = np.zeros((C * OmC, 8))
+    ol_b = np.zeros(C * OmC, np.int32)
+    ov_b = np.zeros(C * OmC, bool)
+    fill = np.zeros(C, int)
+    for o in sorted(first):
+        k = oc[o] * OmC + fill[oc[o]]
+        fill[oc[o]] += 1
+        ob_b[k], ol_b[k], ov_b[k] = obs[o], ol[o], True
+    cfree = np.ones(C, bool)
+    cfree[0] = False
+    ei = np.array([0, 1, 2, 3, 4, 5, 7, 0], np.int32)
+    ej = np.array([1, 2, 3, 4, 5, 6, 2, 0], np.int32)
+    ec = np.stack([(Pose.from_wt(cam[b]) @ Pose.from_wt(cam[a]).inv()).wt()
+                   + rng.standard_normal(6) * 0.02 for a, b in zip(ei, ej)])
+    ec[-1] = 0.0
+    sig = np.array([[0.01, 0.05]] * 6 + [[0.2, 1.0], [1e9, 1e9]])
+    arrays = (cam, line, ob_b, np.repeat(np.arange(C, dtype=np.int32), OmC),
+              ol_b, ov_b, cfree, np.ones(L, bool))
+    return arrays, (ei, ej, ec, sig)
+
+
+@pytest.mark.gpu
+def test_local_ba_prior_edges_on_gpu_matches_cpu(cuda_device):
+    """The joint polish's solve, local_ba with prior_edges, on the card
+    (K2 ``full``, the priors' block sums and Hoff placement on K1) against
+    the CPU twins in float64: the same LM iterations, cameras and lines
+    within 1e-8, final cost within rtol 1e-9.  Four LM iterations: the
+    random problem's observations are no geometry, and past ~12 its LM path
+    amplifies rounding (JAX's own assemblies part by 4e-8 at 15 and 2e-4
+    at 30, tests/test_torch_schur_ba.py)."""
+    from slslam_tpu_torch.ops.schur_ba import local_ba
+    arrays, pe = _blocked_ba()
+
+    def run(dev):
+        t = [torch.as_tensor(a, device=dev) for a in arrays]
+        return local_ba(*t, 0.12, 1.0 / 406.05, robust=True, max_iters=4,
+                        prior_edges=tuple(torch.as_tensor(a, device=dev)
+                                          for a in pe))
+
+    before = kernels.launch_counts["fused_eval/full"]
+    cg, lg, sg = run(cuda_device)
+    assert kernels.launch_counts["fused_eval/full"] == before + int(
+        sg.iterations)
+    cc, lc, sc = run("cpu")
+    assert int(sg.iterations) == int(sc.iterations) == 4
+    assert float(torch.max(torch.abs(cg.cpu() - cc))) <= 1e-8
+    assert float(torch.max(torch.abs(lg.cpu() - lc))) <= 1e-8
+    assert abs(float(sg.final_cost) - float(sc.final_cost)) <= 1e-9 * float(
+        sc.final_cost)
+
+
+@pytest.mark.gpu
+def test_global_ba_cg_prior_c_on_gpu_matches_cpu(cuda_device):
+    """global_ba_cg with the odometry-chain prior on 20 house frames:
+    card (K2 ``lm``, K1 in the PCG and the prior sums) against the CPU in
+    float64: the same LM iterations, cameras within 1e-6."""
+    import numpy as np
+
+    from slslam_tpu_torch.config import SlamConfig
+    from slslam_tpu_torch.engine import refine
+    from slslam_tpu_torch.hostgeom import Pose
+    from slslam_tpu_torch.ops.schur_cg import global_ba_cg, pack_line_major
+    from slslam_tpu_torch.sim import (StereoLineRenderer, house_segments,
+                                      wave_trajectory)
+    cfg = SlamConfig(compute_dtype="float64")
+    poses = wave_trajectory(num_frames=400)[:20]
+    ren = StereoLineRenderer(house_segments(), cfg.camera, noise_px=0.2,
+                             seed=4)
+    frames = [ren.observe(T) for T in poses]
+    rng = np.random.default_rng(0)
+    traj = [Pose.from_wt((T @ poses[0].inv()).inv().wt()
+                         + (rng.standard_normal(6) * 0.01 if k else 0.0))
+            for k, T in enumerate(poses)]
+    s = refine.build_problem_structure(frames, np.ones(20, bool))
+    cam0, line0 = refine.init_problem_values(s, traj, cfg, device="cpu")
+    p = pack_line_major(s.obs, s.ocam, s.olin, 20, len(s.feat_ids))
+    chain = np.stack([(traj[i + 1].inv() @ traj[i]).wt() for i in range(19)])
+    cfree = np.ones(20, bool)
+    cfree[0] = False
+
+    def run(dev):
+        t = lambda a: torch.as_tensor(a, device=dev)       # noqa: E731
+        return global_ba_cg(t(cam0), t(line0), t(p.obs), t(p.obs_cam),
+                            t(p.obs_valid), t(cfree),
+                            torch.ones(len(line0), dtype=torch.bool,
+                                       device=dev), cfg.camera.baseline,
+                            cfg.huber_delta, max_iters=25, prior_c=t(chain),
+                            prior_sigma_rot=0.2, prior_sigma_t=2.0)
+
+    cg, _, sg = run(cuda_device)
+    cc, _, sc = run("cpu")
+    assert int(sg.iterations) == int(sc.iterations) > 2
+    assert float(torch.max(torch.abs(cg.cpu() - cc))) <= 1e-6

@@ -149,11 +149,64 @@ def test_auto_picks_dense_on_cpu_only_for_small_problems(house,
 
 @pytest.mark.parametrize("kw", [
     dict(odometry_prior=True), dict(prior_edges=([0], [1], np.zeros((1, 6))))])
-def test_priors_raise(house, kw):
+def test_priors_raise(house, kw, monkeypatch):
+    """Priors live on the CG path: method="dense" with a prior raises a
+    warning and solves by CG (refine.py:445-452)."""
     frames, is_kf, _, ttraj = house
-    with pytest.raises(NotImplementedError, match="P9"):
+    picked = []
+    orig = tref.global_ba_cg
+
+    def spy(*a, **k):
+        picked.append(k)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(tref, "global_ba_cg", spy)
+    with pytest.warns(UserWarning, match="CG"):
         tref.global_refine(frames, is_kf, ttraj, config=TCFG, device="cpu",
-                           **kw)
+                           method="dense", rounds=1, max_iters=1, **kw)
+    assert picked and all(k["prior_c"] is not None
+                          or k["prior_edges"] is not None for k in picked)
+
+
+def _loop_edges(poses):
+    """Two loop constraints of the house slice from the ground truth."""
+    rng = np.random.default_rng(11)
+    T0 = poses[0]
+    cw = [(T @ T0.inv()).inv().inv() for T in poses]   # world->cam
+
+    def rel(a, b):
+        return (cw[b] @ cw[a].inv()).wt() + rng.standard_normal(6) * 0.005
+
+    ei, ej = np.array([0, 3]), np.array([NF - 1, NF - 4])
+    return ei, ej, np.stack([rel(a, b) for a, b in zip(ei, ej)])
+
+
+@pytest.mark.parametrize("prior", ["odometry", "edges", "both"])
+def test_global_refine_priors_match_jax(house, prior):
+    """global_refine with the odometry prior forced on, with prior_edges,
+    and with both (the deferred loop closure's merged refine, which passes
+    the odometry measurements as _prior_c): identical LM iterations, poses
+    within 1e-7 m."""
+    from slslam_tpu.sim import wave_trajectory as jwave
+    frames, is_kf, jtraj, ttraj = house
+    edges = _loop_edges(jwave(num_frames=400)[:NF])
+    chain = np.stack([(jtraj[i + 1].inv() @ jtraj[i]).wt()
+                      for i in range(NF - 1)])
+    chain = chain + np.random.default_rng(2).standard_normal(chain.shape) \
+        * 0.002
+    kw = {"odometry": dict(odometry_prior=True),
+          "edges": dict(prior_edges=edges, odometry_prior=False),
+          "both": dict(prior_edges=edges, odometry_prior=True,
+                       _prior_c=chain)}[prior]
+    a = jref.global_refine(frames, is_kf, jtraj, config=JCFG, rounds=2,
+                           max_iters=6, **kw)
+    b = tref.global_refine(frames, is_kf, ttraj, config=TCFG, rounds=2,
+                           max_iters=6, device="cpu", **kw)
+    assert b.iterations == a.iterations > 2
+    dpos = max(np.linalg.norm(x.t - y.t)
+               for x, y in zip(a.trajectory, b.trajectory))
+    assert dpos <= 1e-7, dpos
+    np.testing.assert_allclose(b.final_cost, a.final_cost, rtol=1e-7)
 
 
 def test_cuda_without_a_card_raises(house):

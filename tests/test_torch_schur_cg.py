@@ -183,7 +183,96 @@ def test_padded_lines_inert(problem):
 
 @pytest.mark.parametrize("option", ["prior_c", "prior_edges"])
 def test_priors_raise(problem, option):
+    """Malformed priors are refused: a chain of the wrong length, edges of
+    a tuple that is neither (ei, ej, c) nor (ei, ej, c, sig)."""
     cam0, orth0, _, _, _, cam_free, p = problem
-    with pytest.raises(NotImplementedError, match="P9"):
+    bad = {"prior_c": np.zeros((len(cam0), 6)),
+           "prior_edges": (np.array([0]), np.array([1]))}[option]
+    with pytest.raises(ValueError, match=option):
         _port_solve(cam0, orth0, p, cam_free, np.ones(len(orth0), bool), 2,
-                    **{option: np.zeros((len(cam0) - 1, 6))})
+                    **{option: bad})
+
+
+def _priors(cam0, seed=5):
+    """prior_c: the chain of cam0's relative poses, perturbed; edges: two
+    loop edges, their constraints perturbed too."""
+    from slslam_tpu_torch.hostgeom import Pose
+    rng = np.random.default_rng(seed)
+    P = [Pose.from_wt(w) for w in cam0]
+
+    def rel(a, b):
+        return (P[b] @ P[a].inv()).wt() + rng.standard_normal(6) * 0.01
+
+    C = len(cam0)
+    chain = np.stack([rel(i, i + 1) for i in range(C - 1)])
+    ei, ej = np.array([0, 1], np.int32), np.array([C - 1, C - 2], np.int32)
+    c = np.stack([rel(a, b) for a, b in zip(ei, ej)])
+    return chain, (ei, ej, c), (ei, ej, c, np.array([[0.05, 0.2],
+                                                     [0.5, 3.0]]))
+
+
+@pytest.mark.parametrize("which", ["prior_c", "prior_edges3",
+                                   "prior_edges4", "both"])
+def test_global_ba_cg_priors_match_jax(problem, which):
+    """global_ba_cg with the odometry-chain prior, with 3- and 4-tuple
+    prior edges, and with both: the same LM iterations as JAX, cameras and
+    lines within 1e-8, costs within 1e-9."""
+    cam0, orth0, _, _, _, cam_free, p = problem
+    L = len(orth0)
+    chain, e3, e4 = _priors(cam0)
+    kw = {"prior_c": dict(prior_c=chain),
+          "prior_edges3": dict(prior_edges=e3),
+          "prior_edges4": dict(prior_edges=e4),
+          "both": dict(prior_c=chain, prior_edges=e3)}[which]
+    sig = dict(prior_sigma_rot=0.02, prior_sigma_t=0.1)
+    jkw = {k: (jnp.asarray(v) if k == "prior_c" else
+               tuple(jnp.asarray(x) for x in v)) for k, v in kw.items()}
+    cj, lj, sj = jcg.global_ba_cg(
+        jnp.asarray(cam0), jnp.asarray(orth0), jnp.asarray(p.obs),
+        jnp.asarray(p.obs_cam), jnp.asarray(p.obs_valid),
+        jnp.asarray(p.cam_perm), jnp.asarray(p.cam_perm_valid),
+        jnp.asarray(cam_free), jnp.asarray(np.ones(L, bool)),
+        jnp.asarray(BL), jnp.asarray(HD), robust=True, max_iters=25,
+        **sig, **jkw)
+    ct, lt, st = _port_solve(cam0, orth0, p, cam_free, np.ones(L, bool), 25,
+                             **sig, **kw)
+    assert int(st.iterations) == int(sj.iterations) > 2
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), **TOL)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    np.testing.assert_allclose(float(st.initial_cost),
+                               float(sj.initial_cost), rtol=1e-9)
+    np.testing.assert_allclose(float(st.final_cost), float(sj.final_cost),
+                               rtol=1e-9)
+
+
+def test_solve_step_cg_with_prior_matches_jax(problem):
+    """One damped PCG step with the priors' Hoff in the matvec."""
+    cam0, orth0, _, _, _, cam_free, p = problem
+    C, L = len(cam0), len(orth0)
+    cf = cam_free.astype(np.float64)
+    lf = np.ones(L)
+    wv = p.obs_valid.astype(np.float64)
+    blocks = jax.jit(lambda *a: jcg._eval_system_lm(*a, True, "orth"))(
+        *(jnp.asarray(x) for x in (cam0, orth0, p.obs, p.obs_cam, wv,
+                                   p.cam_perm, p.cam_perm_valid, cf, lf,
+                                   BL, HD)))
+    chain, _, e4 = _priors(cam0)
+    prior = tcg._prior_edges(C, chain, e4, 0.02, 0.1, torch.float64, "cpu")
+    _, gc_e, Hcc_e, Hoff = tba.prior_terms(prior, _t(cam0), _t(cf))
+    Hcc = blocks[1] + jnp.asarray(Hcc_e.numpy())
+    gc = blocks[3] + jnp.asarray(gc_e.numpy())
+    ref = jcg._solve_step_cg(
+        Hcc, blocks[2], gc, *blocks[4:], jnp.asarray(Hoff.numpy()),
+        jnp.asarray(prior.ei.numpy(), jnp.int32),
+        jnp.asarray(prior.ej.numpy(), jnp.int32), jnp.asarray(p.obs_cam),
+        jnp.asarray(p.cam_perm), jnp.asarray(p.cam_perm_valid), 1e-3,
+        jnp.asarray(cf), jnp.asarray(lf), 100, 1e-2)
+    plan = tcg.lm_plan(_t(p.obs_cam), _t(wv), C)
+    got = tcg._solve_step_cg(
+        _t(Hcc), _t(blocks[2]), _t(gc), *(_t(x) for x in blocks[4:]),
+        _t(p.obs_cam), plan.cam, 1e-3, _t(cf), _t(lf), 100, 1e-2, Hoff,
+        prior)
+    assert got[4] == int(ref[4]) > 0
+    for name, a, b in zip(("dc", "dl", "damp_quad", "g_dot_d"), ref, got):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-9,
+                                   atol=1e-12, err_msg=name)
