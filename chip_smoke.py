@@ -10,7 +10,10 @@ Phases, each printing one JSON line:
    from ``-Xptxas -v``;
 1. K1: the segment plan against its twin (identical), and ``segment_sum``
    with and without a plan against its twin on CPU copies, float32 and
-   float64, at the shapes of the replay and of the refine's PCG;
+   float64, at the shapes of the replay and of the refine's PCG; and
+   ``assemble`` (the port of ``assemble_pallas``: three K1 sums, on no
+   main path) against its plain version at the window's shape, checked
+   and timed;
 2. K2 ``fused_eval``, every variant (full, cams, lines, lm) at its
    main-path shape against its twin, float32 and float64, a repeat launch
    that must agree bit for bit; ``lm``'s first launch writes into memory
@@ -61,12 +64,19 @@ Phases, each printing one JSON line:
    closures, merges).  Then the post-pass in f64 on that replay, CUDA
    against CPU, both fed the same span noise: identical closures, merges
    and PGO iterations, trajectories within 1e-6 m.  It prints the stage
-   walls and ``refine_pick``.
+   walls and ``refine_pick``.  Last, every kernel at every shape that the
+   loop-closure run launched it at (``kernels.launch_shapes``: the
+   village replay's window, the span refits, group fits and joint
+   polishes, the priors' and the PGO's block sums, the merged refine):
+   against its twin in float32 and float64 at the tolerances of phases 1
+   and 2, and timed in float32 as they time the house shapes.
 
 The launch counts of the kernels' record are those of the three
 main-path runs, phase 4's replay, phase 5's refine and phase 6's loop
 closure run, each counted from zero (the split is under
-``launches_by_path``).  Then a line with the card's name
+``launches_by_path``); each timed shape carries its own launches in
+those runs (``launches_at_shape``; role "lc": the loop-closure run's).
+Then a line with the card's name
 and power limit, a line with the kernels' record, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed
 check raises: the script exits non-zero and prints no result.  Without a
@@ -208,42 +218,36 @@ def phase1(dev, rec):
 
     # the plan at every shape the main path builds, K1 at lines-GN's trial
     # cost and at the PCG's two camera sums
-    roles = ("window lines", "window (cam, line) pairs", "VO polish cameras",
-             "refine cameras", "refine lines")
+    roles = ("window and lines-GN lines", "window (cam, line) pairs",
+             "VO polish cameras", "refine cameras", "refine lines")
     for role, (O, P) in zip(roles, kc.PLAN_SHAPES):
-        key = kc.plan_case(O, P, dev)
-        times = dict(
+        add_shape(rec["segment_plan"], dict(
             shape=[O, P], role=role,
             max_abs_err=float(out["plans"][str((O, P))]),
-            ms=cuda_ms(lambda: kernels.segment_plan(key, P)),
-            device_ms=graph_ms(lambda: kernels.segment_plan(key, P)),
-            plain_ms=cuda_ms(lambda: kernels.segment_plan_twin(key, P)),
-            library_ms=cuda_ms(lambda: sort_plan(key, P)))
-        times.update(zip(("bound_ms", "bound_by"),
-                         kc.bound(*kc.plan_work(O, P))))
-        add_shape(rec["segment_plan"], times)
+            **plan_times(dev, O, P)))
 
     k1_roles = ("lines-GN trial cost", None, None, "refine PCG matvec",
                 "refine PCG preconditioner")
     for role, (O, D, P) in zip(k1_roles, kc.K1_SHAPES):
         if role is None:
             continue
-        vals, idx = kc.k1_case(O, D, P, torch.float32, dev)
-        plan = kernels.segment_plan(idx, P)
-        buf = torch.zeros((P + 1, D), dtype=vals.dtype, device=dev)
-        pad = torch.where((idx >= 0) & (idx < P), idx,
-                          torch.full_like(idx, P))
-        times = dict(
+        add_shape(rec["segment_sum"], dict(
             shape=[O, D, P], role=role,
             max_abs_err=out[f"float32_{(O, D, P, True)}"]["max_abs_err"],
-            ms=cuda_ms(lambda: kernels.segment_sum(vals, idx, P, plan=plan)),
-            device_ms=graph_ms(lambda: kernels.segment_sum(vals, idx, P,
-                                                           plan=plan)),
-            plain_ms=cuda_ms(lambda: kernels.segment_sum_twin(vals, idx, P)),
-            library_ms=cuda_ms(lambda: buf.index_add_(0, pad, vals)))
-        times.update(zip(("bound_ms", "bound_by"),
-                         kc.bound(*kc.k1_work(vals, idx, P))))
-        add_shape(rec["segment_sum"], times)
+            **k1_times(dev, O, D, P)))
+    # assemble, the port of assemble_pallas (three K1 sums with their
+    # plans), at the window's (C, L, O); no main path calls it
+    C, L, O = kc.K2_SHAPES["full"]
+    args = kc.assemble_case(C, L, O, torch.float32, dev)
+    out["assemble"] = dict(
+        shape=[C, L, O], launches=0,
+        max_abs_err={str(dt)[6:]: kc.check_assemble(dt, dev)
+                     for dt in (torch.float32, torch.float64)},
+        ms=cuda_ms(lambda: kernels.assemble(*args)),
+        device_ms=graph_ms(lambda: kernels.assemble(*args)),
+        plain_ms=cuda_ms(lambda: kc.assemble_plain(*args)), library_ms=None)
+    out["assemble"].update(zip(("bound_ms", "bound_by"), kc.bound(
+        *kc.assemble_work(C, L, O, 4))))
     fields = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
     out["times_float32"] = {
         name: [dict(shape=r["shape"], **{f: r[f] for f in fields})
@@ -255,6 +259,69 @@ def phase1(dev, rec):
     out["segment_sum_no_plan_ms"] = cuda_ms(
         lambda: kernels.segment_sum(vals, idx, P))
     log(out)
+
+
+def plan_times(dev, O, P):
+    """The plan at (O, P) in float32 (kernel_checks.plan_case): eager and
+    graph-replayed ms, the twin's, the sort yardstick's, and the bound."""
+    from slslam_tpu_torch import kernel_checks as kc
+    from slslam_tpu_torch.ops import kernels
+    key = kc.plan_case(O, P, dev)
+    times = dict(
+        ms=cuda_ms(lambda: kernels.segment_plan(key, P)),
+        device_ms=graph_ms(lambda: kernels.segment_plan(key, P)),
+        plain_ms=cuda_ms(lambda: kernels.segment_plan_twin(key, P)),
+        library_ms=cuda_ms(lambda: sort_plan(key, P)))
+    times.update(zip(("bound_ms", "bound_by"), kc.bound(*kc.plan_work(O, P))))
+    return times
+
+
+def k1_times(dev, O, D, P):
+    """K1 at (O, D, P) in float32 (kernel_checks.k1_case) with its plan
+    built outside the timing: eager and graph-replayed ms, the twin's, one
+    ``index_add_`` into a pre-zeroed (P + 1, D) buffer, and the bound."""
+    import torch
+    from slslam_tpu_torch import kernel_checks as kc
+    from slslam_tpu_torch.ops import kernels
+    vals, idx = kc.k1_case(O, D, P, torch.float32, dev)
+    plan = kernels.segment_plan(idx, P)
+    buf = torch.zeros((P + 1, D), dtype=vals.dtype, device=dev)
+    pad = torch.where((idx >= 0) & (idx < P), idx, torch.full_like(idx, P))
+    times = dict(
+        ms=cuda_ms(lambda: kernels.segment_sum(vals, idx, P, plan=plan)),
+        device_ms=graph_ms(lambda: kernels.segment_sum(vals, idx, P,
+                                                       plan=plan)),
+        plain_ms=cuda_ms(lambda: kernels.segment_sum_twin(vals, idx, P)),
+        library_ms=cuda_ms(lambda: buf.index_add_(0, pad, vals)))
+    times.update(zip(("bound_ms", "bound_by"),
+                     kc.bound(*kc.k1_work(vals, idx, P))))
+    return times
+
+
+def k2_times(dev, variant, shape=None, pad_frac=0.008):
+    """K2's ``variant`` at ``shape`` in float32 (kernel_checks.
+    k2_variant_case) with its plan built outside the timing: eager and
+    graph-replayed ms, the twin's, and the bound; no PyTorch call computes
+    the same function (``library_ms`` None)."""
+    import torch
+    from slslam_tpu_torch import kernel_checks as kc
+    from slslam_tpu_torch.ops import kernels
+    args, plan = kc.k2_variant_case(variant, torch.float32, dev, shape,
+                                    pad_frac)
+
+    def kernel():
+        return kernels.fused_eval(**args, variant=variant, plan=plan)
+
+    times = dict(
+        ms=cuda_ms(kernel), device_ms=graph_ms(kernel),
+        plain_ms=cuda_ms(lambda: kernels.fused_eval_twin(
+            **args, variant=variant), reps=20),
+        library_ms=None)
+    times.update(zip(("bound_ms", "bound_by"),
+                     kc.bound(*kc.k2_work(args, variant, plan))))
+    if variant == "lm":
+        times["dropped_rows"] = int(kc.dropped_rows(plan.cam).numel())
+    return times
 
 
 def sort_plan(key, P):
@@ -289,24 +356,11 @@ def phase2(dev, rec):
             errs = kc.check_k2(dtype, dev, variant)
             out[f"{variant}_{str(dtype)[6:]}"] = {
                 k: {"err": e, "max_abs_err": m} for k, (e, m) in errs.items()}
-        args, plan = kc.k2_variant_case(variant, torch.float32, dev)
-
-        def kernel():
-            return kernels.fused_eval(**args, variant=variant, plan=plan)
-
-        nbytes, ops = kc.k2_work(args, variant, plan)
-        if variant == "lm":
-            rec[name]["dropped_rows"] = int(
-                kc.dropped_rows(plan.cam).numel())
         rec[name].update(
             shape=list(kc.K2_SHAPES[variant]),
             max_abs_err=max(v["max_abs_err"]
                             for v in out[f"{variant}_float32"].values()),
-            ms=cuda_ms(kernel), device_ms=graph_ms(kernel),
-            plain_ms=cuda_ms(lambda: kernels.fused_eval_twin(
-                **args, variant=variant), reps=20),
-            library_ms=None)
-        rec[name].update(zip(("bound_ms", "bound_by"), kc.bound(nbytes, ops)))
+            **k2_times(dev, variant), shapes=[])
         out[f"{variant}_times_float32"] = {f: rec[name][f] for f in (
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
     log(out)
@@ -440,6 +494,7 @@ def phase4(dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.launch_counts)
+        shapes = dict(kernels.launch_shapes)
     ate_raw = ate(res.trajectory, poses)
     lm_iters = int(np.sum(res.per_frame["ba_iters"]))
     by_variant = variant_launches(launches)
@@ -473,14 +528,7 @@ def phase4(dev):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"phase 4 failed: {failed}")
-    # plans by shape: each window solve builds a line and a pair plan,
-    # lines-GN a line plan, the VO polish a camera plan
-    by_role = {"window lines": calls["local_ba"],
-               "window (cam, line) pairs": calls["local_ba"]}
-    by_role["VO polish cameras"] = (launches["segment_plan"]
-                                    - 2 * calls["local_ba"]
-                                    - calls["lines_gn"])
-    return frames, poses, res, wall, launches, by_role
+    return frames, poses, res, wall, launches, shapes
 
 
 def phase5(dev, rec, replay):
@@ -490,7 +538,7 @@ def phase5(dev, rec, replay):
     from slslam_tpu_torch.bench import ate, bench_config
     from slslam_tpu_torch.engine import refine
     from slslam_tpu_torch.ops import kernels, residuals, schur_cg
-    frames, poses, res, replay_wall, launches4, roles4 = replay
+    frames, poses, res, replay_wall, launches4, shapes4 = replay
     cfg = bench_config("float32")
     s = refine.build_problem_structure(frames, res.is_kf)
     pack = schur_cg.pack_line_major(s.obs, s.ocam, s.olin, len(res.is_kf),
@@ -522,6 +570,7 @@ def phase5(dev, rec, replay):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(kernels.launch_counts)
+            shapes5 = dict(kernels.launch_shapes)
     finally:
         refine.global_ba_cg = saved
     n_lm = sum(i for i, _ in solves)
@@ -565,14 +614,11 @@ def phase5(dev, rec, replay):
     for name, split in by_path.items():
         rec[name]["launches"] = split["replay"] + split["refine"]
         rec[name]["launches_by_path"] = split
-    plans = {**roles4, "refine cameras": len(solves),
-             "refine lines": len(solves)}
-    k1 = {"lines-GN trial cost": launches4["segment_sum"],
-          "refine PCG matvec": n_lm + n_cg,
-          "refine PCG preconditioner": n_lm}
-    for name, counts in (("segment_plan", plans), ("segment_sum", k1)):
+    # every timed house shape: its launches in the replay and the refine
+    for name in rec:
         for r in [rec[name]] + rec[name]["shapes"]:
-            r["launches_at_shape"] = counts[r["role"]]
+            key = (name, tuple(r["shape"]))
+            r["launches_at_shape"] = shapes4.get(key, 0) + shapes5.get(key, 0)
 
 
 def _span_hook(seed=0x10C):
@@ -611,6 +657,7 @@ def phase6(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.launch_counts)
+    launch_shapes = dict(kernels.launch_shapes)
     res = out.base
     gt = [poses[i] for i in np.flatnonzero(res.is_kf)]
     ate_odo = bench.ate(res.trajectory, gt)
@@ -620,14 +667,14 @@ def phase6(dev):
     # two post-passes over that replay with one descriptor list: the
     # post-pass's own launches and solve shapes, and its repeat bit for bit
     pre = [src(i, sorted(fr)) for i, fr in enumerate(frames)]
-    shapes = {}
+    ba_shapes = {}
 
     def record(orig):
         def wrapped(cam, line, obs, *a, **k):
             key = (f"{tuple(cam.shape)[0]}x{tuple(line.shape)[0]}x"
                    f"{tuple(obs.shape)[0]}"
                    + (" priors" if k.get("prior_edges") is not None else ""))
-            shapes[key] = shapes.get(key, 0) + 1
+            ba_shapes[key] = ba_shapes.get(key, 0) + 1
             return orig(cam, line, obs, *a, **k)
         return wrapped
 
@@ -660,7 +707,7 @@ def phase6(dev):
          "wall_confirm_stages": out.stats["wall_confirm_stages"],
          "launches": launches, "post_pass_wall_s": w1,
          "post_pass_launches": post_launches,
-         "post_pass_local_ba_shapes_CxLxO": shapes,
+         "post_pass_local_ba_shapes_CxLxO": ba_shapes,
          "refine_C_L_O": [p1.refined.num_cams, p1.refined.num_lines,
                           p1.refined.num_obs],
          "post_pass_summary": _lc_summary(p1),
@@ -703,7 +750,65 @@ def phase6(dev):
         raise AssertionError("phase 6: f64 merges differ")
     if not dtraj <= 1e-6:
         raise AssertionError(f"phase 6: f64 trajectories differ by {dtraj} m")
-    return launches
+    refined = out.refined
+    return launches, launch_shapes, (refined.num_cams, refined.num_lines,
+                                     refined.num_obs)
+
+
+def lc_kernels(dev, rec, launches, launch_shapes, refine_cl_o):
+    """Every kernel at every shape the loop-closure run launched it at
+    (phase 6's ``kernels.launch_shapes``): against its twin in float32 and
+    float64 at K1_TOL / K2_TOL (the plan: identical), then timed in
+    float32 as phases 1 and 2 time the house shapes.  ``lm``'s case pads
+    the share of rows that the merged refine's packing pads (its (C, L,
+    valid rows) is ``refine_cl_o``).  Each shape goes to its kernel's
+    ``shapes`` with role "lc" and its launches in that run."""
+    import torch
+    from slslam_tpu_torch import kernel_checks as kc
+    covered = dict.fromkeys(launches, 0)
+    worst = {}
+    t0 = time.perf_counter()
+    for (name, shape), n in sorted(launch_shapes.items()):
+        covered[name] += n
+        if name == "segment_plan":
+            (_, diff), = kc.check_plans(dev, [shape])
+            errs = {"plan": float(diff)}
+            times = plan_times(dev, *shape)
+        elif name == "segment_sum":
+            errs = {}
+            for dtype in (torch.float32, torch.float64):
+                for (*_, with_plan), err, max_abs in kc.check_k1(
+                        dtype, dev, [shape]):
+                    key = str(dtype)[6:]
+                    errs[key] = max(errs.get(key, 0.0), max_abs)
+                    worst[name, key] = max(worst.get((name, key), 0.0), err)
+            times = k1_times(dev, *shape)
+        else:
+            variant = name.split("/")[1]
+            C, L, O = shape
+            pad = 0.008
+            if variant == "lm" and (C, L) == refine_cl_o[:2]:
+                pad = 1.0 - refine_cl_o[2] / O
+            errs = {}
+            for dtype in (torch.float32, torch.float64):
+                key = str(dtype)[6:]
+                for err, max_abs in kc.check_k2(dtype, dev, variant, shape,
+                                                pad).values():
+                    errs[key] = max(errs.get(key, 0.0), max_abs)
+                    worst[name, key] = max(worst.get((name, key), 0.0), err)
+            times = k2_times(dev, variant, shape, pad)
+        rec[name]["shapes"].append(dict(
+            shape=list(shape), role="lc", launches_at_shape=n,
+            max_abs_err=errs.get("float32", errs.get("plan")), **times))
+    log({"phase": 6, "kernels_at_lc_shapes": {
+        name: len([k for k in launch_shapes if k[0] == name])
+        for name in launches},
+        "worst_normalized_error": {f"{k[0]} {k[1]}": v
+                                   for k, v in worst.items()},
+        "check_and_time_s": time.perf_counter() - t0})
+    if covered != launches:
+        raise AssertionError(f"phase 6: launches by shape {covered} do not "
+                             f"add up to the launches {launches}")
 
 
 def main():
@@ -733,10 +838,11 @@ def main():
     phase2(dev, rec)
     phase3(dev)
     phase5(dev, rec, phase4(dev))
-    launches6 = phase6(dev)
+    launches6, shapes6, refine_cl_o = phase6(dev)
     for name, n in launches6.items():
         rec[name]["launches"] += n
         rec[name]["launches_by_path"]["lc"] = n
+    lc_kernels(dev, rec, launches6, shapes6, refine_cl_o)
     if "jax" in sys.modules or any(m == "slslam_tpu" or
                                    m.startswith("slslam_tpu.")
                                    for m in sys.modules):

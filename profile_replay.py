@@ -29,20 +29,6 @@ Each part prints one JSON line.  Without a CUDA device it exits 1.
 
     python3 profile_replay.py --kernels ROOT
 
-    python3 profile_replay.py --sum-order [--device cpu]
-
-instead puts the f64 gap of a 1-round refine beside a witness on the
-scale of rounding: chip_smoke.py's phase-3 replay (60 house frames of
-render seed 4, float64, its Gumbel hook) and its 1-round CG refine
-(``method="cg"``, 25 LM iterations at most), three times from one
-trajectory: on the card, on the CPU (the kernels' twins), and on the CPU
-with every twin sum over rows (K1's ``index_add_`` and K2's reductions)
-taken in reversed row order.  It prints the LM iterations and the largest
-pose gap of card vs CPU and of CPU vs reversed CPU.  ``--device cpu`` runs
-the replay on the CPU and skips the card (no card needed).
-
-    python3 profile_replay.py --kernels ROOT
-
 instead times the window-BA kernels of the checkout at ROOT (default:
 this one): K2 ``fused_eval`` (the full evaluate, (C, L, O) = (20, 81,
 1600)) and K1 ``segment_sum`` at (O, D, P) = (1600, 21, 81) and (1600, 1,
@@ -247,98 +233,19 @@ def kernel_times(root):
     log(out)
 
 
-@contextlib.contextmanager
-def reversed_twin_sums():
-    """The kernels' plain twins with every sum over rows taken in reversed
-    row order (the same function, its float additions in another order)."""
-    import torch
-    from slslam_tpu_torch.ops import kernels
-
-    def acc(shape, index, vals):
-        return torch.zeros(shape, dtype=vals.dtype,
-                           device=vals.device).index_add_(
-            0, index.flip(0), vals.flip(0))
-
-    def seg_sum(values, idx, num_segments):
-        keep = (idx >= 0) & (idx < num_segments)
-        out = torch.zeros((num_segments,) + values.shape[1:],
-                          dtype=values.dtype, device=values.device)
-        return out.index_add_(0, idx[keep].long().flip(0),
-                              values[keep].flip(0))
-
-    with patched(kernels, "_acc", lambda _: acc), \
-            patched(kernels, "segment_sum_twin", lambda _: seg_sum):
-        yield
-
-
-def sum_order(device):
-    """The 1-round refine's f64 gap, card vs CPU, beside the CPU twin
-    against itself with its sums reversed (see the module docstring)."""
-    import torch
-    from slslam_tpu_torch.bench import bench_config, workload
-    from slslam_tpu_torch.engine.batch import BatchSlam
-    from slslam_tpu_torch.engine.refine import global_refine
-    from slslam_tpu_torch.ops.ransac import gumbel_noise
-    cfg = bench_config("float64")
-    frames, _ = workload(cfg, 60, 4)
-    H = cfg.ransac_num_hypotheses
-
-    def hook(fidx, Lp=81):
-        g = torch.Generator().manual_seed(1000 + fidx)
-        return gumbel_noise(g, (H, Lp), torch.float64, "cpu")
-
-    res = BatchSlam(cfg, device=device, gumbel_hook=hook).run(frames)
-
-    def refine(dev):
-        return global_refine(frames, res.is_kf, res.trajectory, config=cfg,
-                             rounds=1, method="cg", device=dev)
-
-    def gap(a, b):
-        return max(float(np.linalg.norm(x.t - y.t))
-                   for x, y in zip(a.trajectory, b.trajectory))
-
-    cpu = refine("cpu")
-    with reversed_twin_sums():
-        rev = refine("cpu")
-    out = {"mode": "sum-order", "frames": len(frames), "rounds": 1,
-           "replay_device": str(device), "lm_iterations_cpu": cpu.iterations,
-           "lm_iterations_cpu_reversed": rev.iterations,
-           "gap_cpu_vs_reversed_m": gap(cpu, rev)}
-    if torch.device(device).type == "cuda":
-        card = refine(device)
-        out.update(nvidia_smi=nvidia_smi(),
-                   lm_iterations_cuda=card.iterations,
-                   gap_cuda_vs_cpu_m=gap(card, cpu),
-                   gap_cuda_vs_reversed_m=gap(card, rev))
-    log(out)
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels", metavar="ROOT", nargs="?", default=None,
                     const=os.path.dirname(os.path.abspath(__file__)),
                     help="time the kernels of the checkout at ROOT instead")
-    ap.add_argument("--sum-order", action="store_true",
-                    help="the 1-round refine's f64 gap against a rounding "
-                         "witness instead")
-    ap.add_argument("--device", default="cuda",
-                    help="--sum-order only: 'cpu' needs no card")
     opts = ap.parse_args()
     import torch
-    if opts.sum_order and opts.device == "cpu":
-        torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
-        sum_order("cpu")
-        return
     if not torch.cuda.is_available():
         print("profile_replay: torch.cuda.is_available() is False",
               file=sys.stderr)
         sys.exit(1)
     if opts.kernels is not None:
         kernel_times(os.path.abspath(opts.kernels))
-        return
-    if opts.sum_order:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        sum_order(torch.device("cuda", 0))
         return
     from slslam_tpu_torch.bench import ate, bench_config, workload
     from slslam_tpu_torch.engine.batch import BatchSlam

@@ -1,9 +1,12 @@
-"""Kernel-vs-twin check cases at the shapes of the slice's main path, and
-the least time the card could take for each kernel's work.
+"""Kernel-vs-twin check cases at the shapes of the slice's main path (or
+at any shape a path launched a kernel at), and the least time the card
+could take for each kernel's work.
 
-Shared by ``chip_smoke.py`` (phases 1 and 2) and the opt-in GPU tests
-(``tests/test_torch_gpu.py``, ``SLSLAM_GPU_TESTS=1``).  Inputs are made
-from a numpy seed.
+Shared by ``chip_smoke.py`` (phases 1 and 2 at the house shapes below,
+phase 6 at every shape ``kernels.launch_shapes`` recorded in the
+loop-closure run) and the tests (``tests/test_torch_gpu.py``,
+``SLSLAM_GPU_TESTS=1``; the rounding witnesses on the CPU).  Inputs are
+made from a numpy seed.
 
 Tolerances are on the normalized error max|kernel - twin| / max(1,
 max|twin|), per output:
@@ -20,6 +23,8 @@ each output written once, counting only the rows that this input keeps.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -96,7 +101,8 @@ def k2_case(dtype, device, C=20, L=81, O=1600, seed=0):
     ol[1::2] = ol[0::2]                       # repeated pairs
     ol[ol == L - 1] = 0                       # line L-1 unobserved
     valid = rng.random(O) < 0.8
-    valid[oc == C - 1] = False                # camera C-1: no valid row
+    if C > 2:                                 # (camera 0 is fixed)
+        valid[oc == C - 1] = False            # camera C-1: no valid row
     obs[~valid] = 0.0
     cfree = np.ones(C)
     cfree[0] = 0.0
@@ -119,16 +125,19 @@ def k2_lm_case(dtype, device, C=REFINE_C, L=REFINE_L, kL=REFINE_KL,
                pad_frac=0.008, seed=0):
     """Arguments of fused_eval on a line-major problem: L buckets of kL
     rows (rows of line l at [l kL, (l + 1) kL), obs_line = l), each
-    observed by distinct cameras (kL <= C) in random order, ``pad_frac`` of
-    the rows padding (w_valid 0, zero observations, camera 0) at the end
-    of their buckets; a fixed camera and a fixed line."""
+    observed by distinct cameras in random order (by random cameras where
+    kL > C), ``pad_frac`` of the rows (one at least) padding (w_valid 0,
+    zero observations, camera 0) at the end of their buckets; a fixed
+    camera and a fixed line."""
     rng = np.random.default_rng(seed)
     cam = rng.standard_normal((C, 6)) * 0.1
     cam[1 % C, :3] = 0.0
     line = rng.standard_normal((L, 4)) * 0.2
     line[:, 3] = 0.3 + 0.5 * rng.random(L)
-    oc = np.stack([rng.permutation(C)[:kL] for _ in range(L)])
-    n_pad = rng.multinomial(int(round(pad_frac * L * kL)), np.ones(L) / L)
+    oc = np.stack([rng.permutation(C)[:kL] if kL <= C
+                   else rng.integers(0, C, kL) for _ in range(L)])
+    n_pad = rng.multinomial(max(1, int(round(pad_frac * L * kL))),
+                            np.ones(L) / L)
     valid = np.arange(kL)[None, :] < (kL - n_pad)[:, None]
     oc[~valid] = 0
     obs = rng.standard_normal((L, kL, 8)) * 0.2
@@ -152,15 +161,65 @@ def k2_lm_case(dtype, device, C=REFINE_C, L=REFINE_L, kL=REFINE_KL,
                 huber_delta=1.0 / 406.05)
 
 
-def k2_variant_case(variant, dtype, device):
-    """The variant's case at its main-path shape (k2_lm_case for ``lm``,
-    k2_case otherwise), and its plan."""
-    C, L, O = K2_SHAPES[variant]
-    args = (k2_lm_case(dtype, device) if variant == "lm"
-            else k2_case(dtype, device, C=C, L=L, O=O))
+def k2_variant_case(variant, dtype, device, shape=None, pad_frac=0.008):
+    """The variant's case at ``shape`` (C, L, O), by default its main-path
+    shape (k2_lm_case with kL = O / L and ``pad_frac`` for ``lm``, k2_case
+    otherwise), and its plan."""
+    C, L, O = shape or K2_SHAPES[variant]
+    if variant == "lm":
+        if O % L:
+            raise ValueError(f"fused_eval/lm: O = {O} is not L = {L} buckets")
+        args = k2_lm_case(dtype, device, C=C, L=L, kL=O // L,
+                          pad_frac=pad_frac)
+    else:
+        args = k2_case(dtype, device, C=C, L=L, O=O)
     plan = kernels.ba_plan(args["obs_cam"], args["obs_line"],
                            args["w_valid"], C, L, variant)
     return args, plan
+
+
+def assemble_case(C, L, O, dtype, device, seed=3):
+    """Arguments of kernels.assemble: random per-row blocks A (O,6,6),
+    B (O,4,4), Wb (O,6,4), gc_o (O,6), gl_o (O,4) and int32 camera and line
+    indices, then C and L."""
+    rng = np.random.default_rng(seed)
+    parts = [torch.as_tensor(rng.standard_normal((O,) + shape), dtype=dtype,
+                             device=device)
+             for shape in ((6, 6), (4, 4), (6, 4), (6,), (4,))]
+    idx = [torch.as_tensor(rng.integers(0, n, O).astype(np.int32),
+                           device=device) for n in (C, L)]
+    return (*parts, *idx, C, L)
+
+
+def assemble_plain(A, B, Wb, gc_o, gl_o, obs_cam, obs_line, C, L):
+    """kernels.assemble's function on the plain twin of K1."""
+    O = A.shape[0]
+    cam = kernels.segment_sum_twin(torch.cat([A.reshape(O, 36), gc_o], 1),
+                                   obs_cam, C)
+    line = kernels.segment_sum_twin(torch.cat([B.reshape(O, 16), gl_o], 1),
+                                    obs_line, L)
+    W = kernels.segment_sum_twin(Wb.reshape(O, 24), obs_cam * L + obs_line,
+                                 C * L)
+    return (cam[:, :36].reshape(C, 6, 6), line[:, :16].reshape(L, 4, 4),
+            cam[:, 36:], line[:, 16:], W.reshape(C, L, 6, 4))
+
+
+def check_assemble(dtype, device, C=20, L=81, O=1600):
+    """kernels.assemble on ``device`` against assemble_plain on CPU copies.
+    Returns the max abs error; raises if a normalized error exceeds
+    K1_TOL."""
+    args = assemble_case(C, L, O, dtype, device)
+    got = kernels.assemble(*args)
+    ref = assemble_plain(*(a.cpu() if torch.is_tensor(a) else a
+                           for a in args))
+    worst = 0.0
+    for name, a, b in zip(("Hcc", "Hll", "gc", "gl", "W"), got, ref):
+        err, max_abs = errors(a, b)
+        if not err <= K1_TOL[dtype]:
+            raise AssertionError(f"assemble {dtype} {name}: error {err} > "
+                                 f"{K1_TOL[dtype]}")
+        worst = max(worst, max_abs)
+    return worst
 
 
 def plan_case(O, P, device, seed=1):
@@ -173,12 +232,12 @@ def plan_case(O, P, device, seed=1):
     return torch.as_tensor(key, device=device)
 
 
-def check_plans(device):
+def check_plans(device, shapes=PLAN_SHAPES):
     """segment_plan on ``device`` against its twin on CPU copies at
-    PLAN_SHAPES.  Returns [((O, P), max abs difference)]; raises unless
-    perm and offsets are identical."""
+    ``shapes`` (O, P).  Returns [((O, P), max abs difference)]; raises
+    unless perm and offsets are identical."""
     out = []
-    for (O, P) in PLAN_SHAPES:
+    for (O, P) in shapes:
         key = plan_case(O, P, device)
         got = kernels.segment_plan(key, P)
         ref = kernels.segment_plan_twin(key.cpu(), P)
@@ -193,12 +252,13 @@ def check_plans(device):
     return out
 
 
-def check_k1(dtype, device):
-    """K1 on ``device`` against the twin on CPU copies, at K1_SHAPES, with
-    and without a plan.  Returns [((O, D, P, with_plan), normalized error,
-    max abs error)]; raises if an error exceeds K1_TOL."""
+def check_k1(dtype, device, shapes=K1_SHAPES):
+    """K1 on ``device`` against the twin on CPU copies, at ``shapes`` (O, D,
+    P), with and without a plan.  Returns [((O, D, P, with_plan),
+    normalized error, max abs error)]; raises if an error exceeds
+    K1_TOL."""
     out = []
-    for (O, D, P) in K1_SHAPES:
+    for (O, D, P) in shapes:
         vals, idx = k1_case(O, D, P, dtype, device)
         ref = kernels.segment_sum_twin(vals.cpu(), idx.cpu(), P)
         for with_plan in (True, False):
@@ -213,19 +273,21 @@ def check_k1(dtype, device):
     return out
 
 
-def check_k2(dtype, device, variant="full"):
+def check_k2(dtype, device, variant="full", shape=None, pad_frac=0.008):
     """K2's ``variant`` on ``device`` against its twin on the same device,
-    launched twice with the variant's plan, at the variant's main-path
-    shape.  Returns {output: (normalized error, max abs error)}; raises if
+    launched twice with the variant's plan, at ``shape`` (C, L, O), by
+    default the variant's main-path shape (``pad_frac``: k2_variant_case).
+    Returns {output: (normalized error, max abs error)}; raises if
     an error exceeds K2_TOL or if the two launches differ in any bit.  For
     ``lm`` on the card the first launch's output must land in memory that
     held NaNs (the caching allocator hands the freed block back; the check
     raises if it handed back another), and every Wb row that the plan drops
     must come out exactly zero."""
-    args, plan = k2_variant_case(variant, dtype, device)
+    args, plan = k2_variant_case(variant, dtype, device, shape, pad_frac)
     nan_ptr = None
     if variant == "lm" and args["obs"].is_cuda:
-        C, L, O = K2_SHAPES[variant]
+        C, L, O = (args["cam_wt"].shape[0], args["line_orth"].shape[0],
+                   args["obs"].shape[0])
         n = 1 + C * 42 + L * 20 + O * 24 + C
         torch.cuda.empty_cache()            # the NaN block: the only free one
         nan_ptr = torch.full((n,), float("nan"), dtype=dtype,
@@ -260,6 +322,91 @@ def dropped_rows(plan):
     return plan.perm[int(plan.offsets[-1]):].long()
 
 
+def prior_ba_case(C=8, L=64, O=256):
+    """A random window BA problem in the camera-major blocked layout (the
+    recipe of __graft_entry__._example_ba_problem, in numpy), float64, and
+    prior edges: a strong chain, a weak loop edge, zero-weight padding."""
+    from .hostgeom import Pose
+    rng = np.random.default_rng(0)
+    cam = rng.standard_normal((C, 6)) * 0.1
+    line = rng.standard_normal((L, 4)) * 0.2
+    line[:, 3] = 0.3 + 0.1 * rng.random(L)
+    obs = rng.standard_normal((O, 8)) * 0.2
+    oc = rng.integers(0, C, O)
+    ol = rng.integers(0, L, O)
+    _, first = np.unique(oc * L + ol, return_index=True)
+    OmC = max(8, -(-int(np.bincount(oc[first], minlength=C).max()) // 8) * 8)
+    ob_b = np.zeros((C * OmC, 8))
+    ol_b = np.zeros(C * OmC, np.int32)
+    ov_b = np.zeros(C * OmC, bool)
+    fill = np.zeros(C, int)
+    for o in sorted(first):
+        k = oc[o] * OmC + fill[oc[o]]
+        fill[oc[o]] += 1
+        ob_b[k], ol_b[k], ov_b[k] = obs[o], ol[o], True
+    cfree = np.ones(C, bool)
+    cfree[0] = False
+    ei = np.array([0, 1, 2, 3, 4, 5, 7, 0], np.int32)
+    ej = np.array([1, 2, 3, 4, 5, 6, 2, 0], np.int32)
+    ec = np.stack([(Pose.from_wt(cam[b]) @ Pose.from_wt(cam[a]).inv()).wt()
+                   + rng.standard_normal(6) * 0.02 for a, b in zip(ei, ej)])
+    ec[-1] = 0.0
+    sig = np.array([[0.01, 0.05]] * 6 + [[0.2, 1.0], [1e9, 1e9]])
+    arrays = (cam, line, ob_b, np.repeat(np.arange(C, dtype=np.int32), OmC),
+              ol_b, ov_b, cfree, np.ones(L, bool))
+    return arrays, (ei, ej, ec, sig)
+
+
+def rounding_gaps(run, arrays, seeds=(0, 1, 2), scale=1e-15):
+    """How far rounding alone moves ``run(arrays)`` (a tuple of tensors) on
+    the CPU: {"reversed": the largest difference of each output from the
+    plain run's with the twins' sums reversed (reversed_twin_sums),
+    "perturbed": the largest over ``seeds`` with every float array of
+    ``arrays`` scaled by 1 + ``scale`` N(0, 1), a few units in the last
+    place}."""
+    ref = run(arrays)
+
+    def gaps(out):
+        return [float(torch.max(torch.abs(a - b))) for a, b in zip(out, ref)]
+
+    with reversed_twin_sums():
+        rev = gaps(run(arrays))
+    pert = [0.0] * len(ref)
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        moved = [a * (1 + scale * rng.standard_normal(a.shape))
+                 if np.issubdtype(np.asarray(a).dtype, np.floating) else a
+                 for a in arrays]
+        pert = [max(x, y) for x, y in zip(pert, gaps(run(moved)))]
+    return {"reversed": rev, "perturbed": pert}
+
+
+@contextlib.contextmanager
+def reversed_twin_sums():
+    """The kernels' plain twins with every sum over rows (K1's and K2's
+    ``index_add_`` reductions) taken in reversed row order: the same
+    function with its float additions in another order, a witness of how
+    far rounding alone moves a solver."""
+    def acc(shape, index, vals):
+        return torch.zeros(shape, dtype=vals.dtype,
+                           device=vals.device).index_add_(
+            0, index.flip(0), vals.flip(0))
+
+    def seg_sum(values, idx, num_segments):
+        keep = (idx >= 0) & (idx < num_segments)
+        out = torch.zeros((num_segments,) + values.shape[1:],
+                          dtype=values.dtype, device=values.device)
+        return out.index_add_(0, idx[keep].long().flip(0),
+                              values[keep].flip(0))
+
+    saved = kernels._acc, kernels.segment_sum_twin
+    kernels._acc, kernels.segment_sum_twin = acc, seg_sum
+    try:
+        yield
+    finally:
+        kernels._acc, kernels.segment_sum_twin = saved
+
+
 # ---------------------------------------------------------------------------
 # Bounds: the least time for the work of one call on these inputs
 # ---------------------------------------------------------------------------
@@ -287,6 +434,17 @@ def k1_work(vals, idx, P):
     e = vals.element_size()
     kept = int(((idx >= 0) & (idx < P)).sum())
     return kept * D * e + 4 * kept + 4 * (P + 1) + P * D * e, kept * D
+
+
+def assemble_work(C, L, O, e):
+    """(bytes, operations) of assemble: its three K1 sums (each with its
+    plan), every row kept."""
+    b = o = 0
+    for D, P in ((42, C), (20, L), (24, C * L)):
+        plan_b, _ = plan_work(O, P)
+        b += plan_b + O * D * e + 4 * O + 4 * (P + 1) + P * D * e
+        o += O * D
+    return b, o
 
 
 # Operations per valid row that K2's function needs, counted in closed form

@@ -58,10 +58,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 VARIANTS = ("full", "cams", "lines", "lm")
 
-# launches of each kernel since the last reset_launch_counts()
+# launches of each kernel since the last reset_launch_counts(), and the
+# same launches by shape: (kernel, shape) -> launches, the shape (O, P) for
+# the plan, (O, D, P) for K1 and (C, L, O) for K2
 launch_counts: Dict[str, int] = {
     "segment_plan": 0, "segment_sum": 0,
     **{f"fused_eval/{v}": 0 for v in VARIANTS}}
+launch_shapes: Dict[tuple, int] = {}
 # wall seconds of the nvcc builds in this process (None until built)
 build_seconds = None
 # source -> nvcc's -Xptxas -v report of its build
@@ -77,6 +80,12 @@ _GRAPH_TICKETS = 4096
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+    launch_shapes.clear()
+
+
+def _count(name, shape):
+    launch_counts[name] += 1
+    launch_shapes[name, shape] = launch_shapes.get((name, shape), 0) + 1
 
 
 def _find_nvcc() -> str:
@@ -242,7 +251,7 @@ def segment_plan(key, num_segments):
     err = lib.seg_plan(key.data_ptr(), O, P, perm.data_ptr(),
                        offsets.data_ptr(), _stream(key.device))
     _raise_on("segment_plan", err)
-    launch_counts["segment_plan"] += 1
+    _count("segment_plan", (O, P))
     return SegmentPlan(key, perm, offsets)
 
 
@@ -315,7 +324,7 @@ def segment_sum(values, idx, num_segments, plan=None):
     err = fn(values.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
              out.data_ptr(), D, P, _stream(values.device))
     _raise_on("segment_sum", err)
-    launch_counts["segment_sum"] += 1
+    _count("segment_sum", (O, D, P))
     return out
 
 
@@ -506,7 +515,7 @@ def fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
              O, *ptrs(rows), stride, *ptrs(plan.line), buf.data_ptr(),
              ticket.data_ptr(), ctypes.c_void_p(stream.cuda_stream))
     _raise_on("fused_eval", err)
-    launch_counts[f"fused_eval/{variant}"] += 1
+    _count(f"fused_eval/{variant}", (C, L, O))
     parts = torch.split(buf, sizes)
     if variant == "lines":
         Hll, gl, cost_l = parts
