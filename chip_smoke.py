@@ -98,6 +98,12 @@ K2_SOURCE = "slslam_tpu_torch/csrc/fused_eval.cu"
 JAC_HELPERS = ("lba_residual_jac_batch", "lba_residual_jac_cam_batch",
                "lba_residual_jac_line_batch")
 REFINE_ROUNDS = 3
+INTERACTIVE_FRAMES = 400
+CHECKPOINT_FRAME = 200
+PARITY_FRAMES = 40
+# the JAX package's keyframe ATE on phase 7 (a)'s run, in float64 on the CPU
+# (tools/jax_interactive_reference.py)
+JAX_INTERACTIVE_ATE_M = 0.0018133473159282338
 
 
 def log(obj):
@@ -755,14 +761,15 @@ def phase6(dev):
                                      refined.num_obs)
 
 
-def lc_kernels(dev, rec, launches, launch_shapes, refine_cl_o):
-    """Every kernel at every shape the loop-closure run launched it at
-    (phase 6's ``kernels.launch_shapes``): against its twin in float32 and
-    float64 at K1_TOL / K2_TOL (the plan: identical), then timed in
-    float32 as phases 1 and 2 time the house shapes.  ``lm``'s case pads
-    the share of rows that the merged refine's packing pads (its (C, L,
-    valid rows) is ``refine_cl_o``).  Each shape goes to its kernel's
-    ``shapes`` with role "lc" and its launches in that run."""
+def shape_kernels(dev, rec, launches, launch_shapes, role, phase,
+                  refine_cl_o=None):
+    """Every kernel at every shape a path launched it at (its
+    ``kernels.launch_shapes``): against its twin in float32 and float64 at
+    K1_TOL / K2_TOL (the plan: identical), then timed in float32 as phases
+    1 and 2 time the house shapes.  ``lm``'s case pads the share of rows
+    that the merged refine's packing pads (its (C, L, valid rows) is
+    ``refine_cl_o``).  Each shape goes to its kernel's ``shapes`` with
+    ``role`` and its launches in that path."""
     import torch
     from slslam_tpu_torch import kernel_checks as kc
     covered = dict.fromkeys(launches, 0)
@@ -787,7 +794,8 @@ def lc_kernels(dev, rec, launches, launch_shapes, refine_cl_o):
             variant = name.split("/")[1]
             C, L, O = shape
             pad = 0.008
-            if variant == "lm" and (C, L) == refine_cl_o[:2]:
+            if (variant == "lm" and refine_cl_o is not None
+                    and (C, L) == refine_cl_o[:2]):
                 pad = 1.0 - refine_cl_o[2] / O
             errs = {}
             for dtype in (torch.float32, torch.float64):
@@ -798,17 +806,239 @@ def lc_kernels(dev, rec, launches, launch_shapes, refine_cl_o):
                     worst[name, key] = max(worst.get((name, key), 0.0), err)
             times = k2_times(dev, variant, shape, pad)
         rec[name]["shapes"].append(dict(
-            shape=list(shape), role="lc", launches_at_shape=n,
+            shape=list(shape), role=role, launches_at_shape=n,
             max_abs_err=errs.get("float32", errs.get("plan")), **times))
-    log({"phase": 6, "kernels_at_lc_shapes": {
+    log({"phase": phase, f"kernels_at_{role}_shapes": {
         name: len([k for k in launch_shapes if k[0] == name])
         for name in launches},
         "worst_normalized_error": {f"{k[0]} {k[1]}": v
                                    for k, v in worst.items()},
         "check_and_time_s": time.perf_counter() - t0})
     if covered != launches:
-        raise AssertionError(f"phase 6: launches by shape {covered} do not "
-                             f"add up to the launches {launches}")
+        raise AssertionError(f"phase {phase}: launches by shape {covered} "
+                             f"do not add up to the launches {launches}")
+
+
+def _merge_shapes(acc, shapes):
+    for k, v in shapes.items():
+        acc[k] = acc.get(k, 0) + v
+
+
+def _run_slam(slam, frames, start=0, on_frame=None):
+    """Frames ``start``.. through ``slam``; returns the keyframes' frame
+    indices."""
+    kf = []
+    for i in range(start, len(frames)):
+        if slam.process_frame(frames[i], i):
+            kf.append(i)
+        if on_frame is not None:
+            on_frame(i)
+    return kf
+
+
+def _cpu_gumbel(seed=0x7A7):
+    """RANSAC noise made on the CPU from (seed, call index), the same on
+    every device: phase 7's CUDA and CPU engines take it."""
+    import torch
+    from slslam_tpu_torch.ops.ransac import gumbel_noise
+
+    def hook(i, H, Nb):
+        g = torch.Generator().manual_seed((seed << 32) + int(i))
+        return gumbel_noise(g, (H, Nb), torch.float64, "cpu")
+    return hook
+
+
+def _poses_equal(a, b):
+    import numpy as np
+    return len(a) == len(b) and all(
+        np.array_equal(x.R, y.R) and np.array_equal(x.t, y.t)
+        for x, y in zip(a, b))
+
+
+def phase7(dev):
+    """The interactive engine (``Slam``): (a) the house at full width in
+    f32 (the main path, counted), (b) the interactive bench workload, (c)
+    f64 parity CUDA vs CPU (orth, then aid with window anchors), (d)
+    interactive loop closure on the village, (e) the checkpoint round trip
+    of (a).  Returns (a)'s launches and every phase 7 run's launch
+    shapes."""
+    import dataclasses
+    import os
+    import numpy as np
+    import torch
+    from slslam_tpu_torch import bench
+    from slslam_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from slslam_tpu_torch.config import SlamConfig
+    from slslam_tpu_torch.engine import Slam
+    from slslam_tpu_torch.engine import slam as slam_mod
+    from slslam_tpu_torch.loopclosure import (PlaceRecognizer, VocTree,
+                                              VocTreeParams)
+    from slslam_tpu_torch.ops import kernels, residuals
+    shapes7 = {}
+    t_phase = time.perf_counter()
+
+    # (a) the house, 400 frames, render seed 4, 0.2 px, the reference gates
+    cfg = dataclasses.replace(SlamConfig(), compute_dtype="float32")
+    frames, poses = bench.workload(cfg, INTERACTIVE_FRAMES, 4)
+    _run_slam(Slam(cfg, device=dev), frames[:WARMUP_FRAMES])   # warm-up
+    torch.cuda.synchronize()
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    ckpt = os.path.join(ckpt_dir, "interactive.npz")
+    calls = dict.fromkeys(JAC_HELPERS + ("staged_local_ba",), 0)
+    slam = Slam(cfg, device=dev)
+
+    def save_at(i):
+        if i == CHECKPOINT_FRAME:
+            save_checkpoint(slam, ckpt)
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(counting(
+            (kernels, residuals), JAC_HELPERS, calls,
+            when=lambda cw, *a, **k: cw.device.type == "cuda"))
+        stack.enter_context(counting((slam_mod,), ("staged_local_ba",),
+                                     calls))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        kf = _run_slam(slam, frames, on_frame=save_at)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        shapes_a = dict(kernels.launch_shapes)
+    _merge_shapes(shapes7, shapes_a)
+    traj = slam.trajectory()
+    ate_a = bench.ate(traj, [poses[i] for i in kf])
+    stats = slam.post_processing()
+    by_variant = variant_launches(launches)
+    jac_cuda = sum(calls[k] for k in JAC_HELPERS)
+    log({"phase": 7, "run": "(a) house, 400 frames, float32, reference "
+         "gates", "kf": len(kf), "landmarks": stats["num_landmarks"],
+         "wall_s": wall, "kf_per_s": len(kf) / wall,
+         "frames_per_s": len(frames) / wall, "ate_kf_m": ate_a,
+         "ate_kf_m_jax_f64_cpu": JAX_INTERACTIVE_ATE_M,
+         "window_lm_iterations": slam.sum_num_iteration,
+         "window_solves": calls["staged_local_ba"],
+         "vo_calls": slam.vo_calls, "jacobian_helper_calls_cuda": jac_cuda,
+         "post_processing": stats, "launches": launches})
+    checks = {
+        "finite poses": all(np.all(np.isfinite(T.t))
+                            and np.all(np.isfinite(T.R)) for T in traj),
+        ">= 10 keyframes": len(kf) >= 10,
+        "keyframe ATE <= 0.1 m": ate_a <= 0.1,
+        "full launches == window LM iterations":
+            by_variant["full"] == slam.sum_num_iteration > 0,
+        "lines launches == lines_gn_iters x window solves":
+            by_variant["lines"]
+            == cfg.lines_gn_iters * calls["staged_local_ba"] > 0,
+        "0 < cams launches <= moba_max_iter x VO calls":
+            0 < by_variant["cams"] <= cfg.moba_max_iter * slam.vo_calls,
+        "no lm launch": by_variant["lm"] == 0,
+        "K1 launched": launches["segment_sum"] > 0,
+        "no torch.func Jacobians on CUDA": jac_cuda == 0,
+        "native embedding walker": stats["embedding_walker"] == "native",
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 7 (a) failed: {failed}")
+
+    # (b) the port's BENCH_MODE=interactive workload
+    kernels.reset_launch_counts()
+    kf_per_s, rec_b = bench.bench_interactive(dev)
+    _merge_shapes(shapes7, kernels.launch_shapes)
+    log({"phase": 7, "run": "(b) BENCH_MODE=interactive",
+         "kf_per_s_median": kf_per_s,
+         **{k: rec_b[k] for k in (
+             "median_frame_ms", "mean_rate_kf_s", "vo_mean_ms",
+             "ba_mean_ms", "avg_ba_iterations", "keyframes",
+             "measured_frames", "post_processing")}})
+
+    # (c) f64 parity, CUDA vs CPU, one noise stream: orth, then aid with
+    # window anchors
+    parity = {}
+    for name, extra in (("orth", {}), ("aid + anchors", dict(
+            line_param="aid", window_anchor_sigma_rot=0.01,
+            window_anchor_sigma_t=0.05))):
+        cfg64 = dataclasses.replace(SlamConfig(), compute_dtype="float64",
+                                    **extra)
+        fr64, _ = bench.workload(cfg64, PARITY_FRAMES, 4)
+        runs = {}
+        for d in (dev, "cpu"):
+            kernels.reset_launch_counts()
+            s = Slam(cfg64, device=d, gumbel_hook=_cpu_gumbel())
+            t0 = time.perf_counter()
+            k = _run_slam(s, fr64)
+            runs[str(d)] = (s, k, time.perf_counter() - t0)
+            if d == dev:
+                _merge_shapes(shapes7, kernels.launch_shapes)
+        (sg, kg, tg), (sc, kc_, tc) = runs[str(dev)], runs["cpu"]
+        dtraj = max(float(np.linalg.norm(a.t - b.t))
+                    for a, b in zip(sg.trajectory(), sc.trajectory()))
+        parity[name] = {"kf": len(kg), "lm_iterations_cuda":
+                        sg.sum_num_iteration, "lm_iterations_cpu":
+                        sc.sum_num_iteration, "max_traj_diff_m": dtraj,
+                        "wall_cuda_s": tg, "wall_cpu_s": tc}
+        if (kg != kc_ or sg.state.edge_set != sc.state.edge_set
+                or sg.sum_num_iteration != sc.sum_num_iteration
+                or sorted(sg.state.lms) != sorted(sc.state.lms)):
+            raise AssertionError(f"phase 7 (c) {name}: keyframes, edges, "
+                                 "landmarks or LM iterations differ")
+        if not dtraj <= 1e-6:
+            raise AssertionError(f"phase 7 (c) {name}: trajectories differ "
+                                 f"by {dtraj} m")
+    log({"phase": 7, "run": f"(c) f64 parity, {PARITY_FRAMES} house "
+         "frames, CUDA vs CPU", **parity})
+
+    # (d) interactive loop closure (tests/test_lc_e2e.py:63-83), float32
+    cfg_lc = dataclasses.replace(
+        SlamConfig(), compute_dtype="float32", ransac_num_hypotheses=64,
+        corr_buckets=(64, 128), obs_buckets=(512, 1024, 2048),
+        line_buckets=(256, 512))
+    fr_lc, poses_lc, src, _, vocab, _ = bench.lc_workload(
+        cfg_lc, 120, 3.2, orbit_radius=3.5)
+    params = VocTreeParams(non_consider_recent=8, consider_seq_length=3,
+                           threshold=0.25, num_avg_words=30)
+    s = Slam(cfg_lc, device=dev)
+    s.place_recognizer = PlaceRecognizer(VocTree(vocab, params, device=dev),
+                                         min_matches=8, min_similarity=0.8)
+    s.descriptor_source = src
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    kf_lc = _run_slam(s, fr_lc)
+    torch.cuda.synchronize()
+    wall_lc = time.perf_counter() - t0
+    _merge_shapes(shapes7, kernels.launch_shapes)
+    ate_lc = bench.ate(s.trajectory(), [poses_lc[i] for i in kf_lc])
+    log({"phase": 7, "run": "(d) interactive loop closure, village, 120 "
+         "frames, float32", "kf": len(kf_lc), "lc_cnt": s.lc_cnt,
+         "edges": len(s.state.edge_set), "pgo_ran": s.pgo_runs > 0,
+         "pgo_runs": s.pgo_runs, "ate_kf_m": ate_lc, "wall_s": wall_lc,
+         "launches": dict(kernels.launch_counts)})
+    checks = {"lc_cnt >= 1": s.lc_cnt >= 1,
+              "an edge beyond the odometry chain":
+                  len(s.state.edge_set) >= len(kf_lc),
+              "ATE < 0.2 m": ate_lc < 0.2}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 7 (d) failed: {failed}")
+
+    # (e) the checkpoint of (a) after frame CHECKPOINT_FRAME, resumed
+    kernels.reset_launch_counts()
+    fresh = Slam(cfg, device=dev)
+    load_checkpoint(fresh, ckpt)
+    kf_e = _run_slam(fresh, frames, start=CHECKPOINT_FRAME + 1)
+    _merge_shapes(shapes7, kernels.launch_shapes)
+    same = (_poses_equal(fresh.trajectory(), traj)
+            and kf_e == [i for i in kf if i > CHECKPOINT_FRAME]
+            and fresh.sum_num_iteration == slam.sum_num_iteration)
+    log({"phase": 7, "run": f"(e) checkpoint after frame "
+         f"{CHECKPOINT_FRAME} of (a), resumed", "bit_for_bit": same,
+         "kf_after": len(kf_e), "phase_7_runs_s":
+         time.perf_counter() - t_phase})
+    if not same:
+        raise AssertionError("phase 7 (e): the resumed run differs from "
+                             "the straight run")
+    return launches, shapes7
 
 
 def main():
@@ -842,7 +1072,14 @@ def main():
     for name, n in launches6.items():
         rec[name]["launches"] += n
         rec[name]["launches_by_path"]["lc"] = n
-    lc_kernels(dev, rec, launches6, shapes6, refine_cl_o)
+    shape_kernels(dev, rec, launches6, shapes6, "lc", 6, refine_cl_o)
+    launches7, shapes7 = phase7(dev)
+    for name, n in launches7.items():
+        rec[name]["launches"] += n
+        rec[name]["launches_by_path"]["interactive"] = n
+    shape_kernels(dev, rec, {k: sum(v for (n, _), v in shapes7.items()
+                                    if n == k) for k in launches7},
+                  shapes7, "interactive", 7)
     if "jax" in sys.modules or any(m == "slslam_tpu" or
                                    m.startswith("slslam_tpu.")
                                    for m in sys.modules):

@@ -2,6 +2,7 @@
 
     python3 -m slslam_tpu_torch.bench                  # one NVIDIA GPU
     BENCH_MODE=lc python3 -m slslam_tpu_torch.bench    # loop closure
+    BENCH_MODE=interactive python3 -m slslam_tpu_torch.bench
 
 The workload, configuration and JSON contract of the repository's
 ``bench.py`` in its default batch mode (bench.py:93-251), run on the port:
@@ -38,6 +39,16 @@ cold and warm seconds, closures, merged tracks, odometry and final ATE,
 ``refine_pick``.  In batch mode the lc measurement is appended as a stderr
 ``lc_keyframes_per_s`` line when at least 200 s of the budget remain, as
 bench.py:555-566 does; ``BENCH_LC=0`` turns it off.
+
+``BENCH_MODE=interactive`` runs bench.py's interactive workload
+(bench.py:466-522) through the port's per-frame ``Slam``: the house, render
+seed 4, 110 frames of which the first 25 warm up, every frame a keyframe,
+buckets obs (2048,), cams (48,), lines (128,), correspondences (128,),
+float32 on the card.  The rate is 1 / the median measured frame time; the
+stderr record carries bench.py's keys (``mean_rate_kf_s``,
+``median_frame_ms``, ``ba_mean_ms``, ``vo_mean_ms``,
+``avg_ba_iterations``, ``keyframes``, ``measured_frames``) plus the card's
+name and the engine's ``post_processing()`` stage means.
 """
 
 from __future__ import annotations
@@ -186,7 +197,7 @@ LC_FRAMES = 170
 LC_ARC = 2.7      # x pi
 
 
-def lc_workload(cfg, num_frames=LC_FRAMES, arc=LC_ARC):
+def lc_workload(cfg, num_frames=LC_FRAMES, arc=LC_ARC, orbit_radius=3.8):
     """bench.py's lc workload (bench.py:381-401): (frames, ground-truth
     poses, descriptor source, track assigner, vocabulary, VocTreeParams).
     The vocabulary is trained here, outside any timed region."""
@@ -195,7 +206,7 @@ def lc_workload(cfg, num_frames=LC_FRAMES, arc=LC_ARC):
                       TrackIdAssigner, village_segments, village_trajectory)
     segs = village_segments(n_houses=6, ring_radius=9.0)
     poses = village_trajectory(num_frames=num_frames, arc=arc * np.pi,
-                               orbit_radius=3.8)
+                               orbit_radius=orbit_radius)
     ren = StereoLineRenderer(segs, cfg.camera, noise_px=0.3, seed=1)
     assigner = TrackIdAssigner(max_gap=5)
     src = SegmentDescriptorSource(assigner, len(segs), noise=0.01, seed=7)
@@ -287,13 +298,84 @@ def bench_lc(device="cuda", dtype="float32", budget_s=480.0, t_start=None,
     return kf_per_s, extra
 
 
+INTERACTIVE_FRAMES = 110
+INTERACTIVE_WARMUP = 25
+
+
+def interactive_config(dtype):
+    """bench.py's interactive configuration (bench.py:474-479)."""
+    from .config import SlamConfig
+    return dataclasses.replace(
+        SlamConfig(), compute_dtype=dtype, kf_rot_thr=1e-9, kf_tr_thr=1e-9,
+        obs_buckets=(2048,), cam_buckets=(48,), line_buckets=(128,),
+        corr_buckets=(128,))
+
+
+def bench_interactive(device="cuda", dtype="float32", budget_s=480.0,
+                      t_start=None, num_frames=INTERACTIVE_FRAMES,
+                      warmup_frames=INTERACTIVE_WARMUP):
+    """The per-frame engine on the house (bench.py:466-522): warm-up
+    frames, then each measured frame timed on the host's clock (the frame
+    reads its results from the card, so the time holds the device's work).
+    Returns (kf/s, the stderr record); ``main`` prints them."""
+    from . import resolve_device
+    from .engine import Slam
+    t_start = time.perf_counter() if t_start is None else t_start
+    dev = resolve_device(device)
+    cfg = interactive_config(dtype)
+    frames, _ = workload(cfg, num_frames, 4)
+    slam = Slam(cfg, device=dev)
+    for i in range(warmup_frames):
+        slam.process_frame(frames[i], i)
+        if time.perf_counter() - t_start > 0.7 * budget_s:
+            warmup_frames = i + 1
+            break
+    kf0 = len(slam.state.kfs)
+    frame_times = []
+    measured_end = warmup_frames
+    for i in range(warmup_frames, num_frames):
+        t0 = time.perf_counter()
+        slam.process_frame(frames[i], i)
+        frame_times.append(time.perf_counter() - t0)
+        measured_end = i + 1
+        if time.perf_counter() - t_start > 0.95 * budget_s:
+            break
+    nkf = len(slam.state.kfs) - kf0
+    if nkf == 0 or not frame_times:
+        raise RuntimeError("interactive bench: no keyframe measured")
+    median_t = float(np.median(frame_times))
+    kf_per_s = 1.0 / median_t
+    stats = slam.post_processing()
+    extra = {
+        "platform": "gpu" if dev.type == "cuda" else dev.type,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else str(dev)),
+        "dtype": dtype,
+        "mode": "interactive",
+        "mean_rate_kf_s": nkf / float(np.sum(frame_times)),
+        "median_frame_ms": median_t * 1e3,
+        "ba_mean_ms": stats["proc_local_ba_mean_s"] * 1e3,
+        "vo_mean_ms": stats["proc_pose_estimation_mean_s"] * 1e3,
+        "avg_ba_iterations": stats["avg_num_iterations"],
+        "keyframes": nkf,
+        "measured_frames": measured_end - warmup_frames,
+        "frame_ms": [t * 1e3 for t in frame_times],
+        "post_processing": stats,
+    }
+    return kf_per_s, extra
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     budget = float(os.environ.get("BENCH_BUDGET_S", 480))
-    if os.environ.get("BENCH_MODE", "batch") == "lc":
+    mode = os.environ.get("BENCH_MODE", "batch")
+    if mode == "lc":
         bench_lc("cuda", budget_s=budget, t_start=t_start)
+        return
+    if mode == "interactive":
+        emit(*bench_interactive("cuda", budget_s=budget, t_start=t_start))
         return
     bench_batch("cuda", budget_s=budget)
     # the lc measurement rides along as a stderr line (bench.py:555-566)

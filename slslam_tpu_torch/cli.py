@@ -2,16 +2,24 @@
 
     python -m slslam_tpu_torch.cli sim --frames 120 --noise-px 0.5 \\
         --out /tmp/run
+    python -m slslam_tpu_torch.cli run --obs-dir data/it3f/line_tracking_result
 
-The ``sim`` command of ``slslam_tpu.cli --engine batch`` with the same
-flags: renders the house world along the wave trajectory (the port's copy
-of the simulation, ``slslam_tpu_torch.sim``, render seed = --rseed),
-replays it through the port's ``BatchSlam`` and writes the trajectory in
-the reference's text format plus ``stats.json``.  ``--refine`` follows the
-replay with the global bundle adjustment (``engine/refine.py``), records
-its ``refine_*`` stats and ``refine_ate_m`` and writes
-``trajectory_refined.txt``, as the JAX CLI does.  ``--device`` defaults to
-``cuda``; ``--device cpu`` runs the plain twins.
+The ``sim`` and ``run`` commands of ``slslam_tpu.cli`` with their flags
+(the reference's --ba-window-size, --max-num-iter, --rseed, --robust,
+--stopfrm; main.cpp:22-27).  ``sim`` renders the house world along the wave
+trajectory (the port's copy of the simulation, render seed = --rseed);
+``run`` replays the reference's line-track files (%04d.txt in pixel
+coordinates) from --obs-dir.  ``--engine interactive`` (the default, as in
+the JAX CLI) drives the per-frame ``Slam``: it writes ``trajectory.txt``,
+``landmarks.txt``, ``stats.json`` with ``post_processing()``'s keys (and
+``sim``'s ``gt_trajectory.txt`` and ``ate_m``), and with
+``--checkpoint-every N`` a resumable ``checkpoint.npz`` every N keyframes.
+``--engine batch`` replays through ``BatchSlam``; ``--refine`` then follows
+with the global bundle adjustment (``refine_*`` stats, ``refine_ate_m``,
+``trajectory_refined.txt``) and is ignored, with a warning, on the
+interactive engine.  ``--device`` defaults to ``cuda``; ``--device cpu``
+runs the plain twins.  The JAX CLI's plots, viewers, live views, mesh
+flags and ``track`` command are not ported.
 """
 
 from __future__ import annotations
@@ -20,33 +28,45 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 import time
 
 import numpy as np
 
 
-def cmd_sim(args):
+def _config(args):
+    from .config import SlamConfig
+    return dataclasses.replace(
+        SlamConfig(), ba_window_size=args.ba_window_size,
+        max_num_iter=args.max_num_iter, rseed=args.rseed,
+        robust=args.robust, compute_dtype=args.dtype)
+
+
+def _write_stats(out, stats):
+    with open(os.path.join(out, "stats.json"), "w") as f:
+        json.dump(stats, f, indent=2)
+    for k, v in stats.items():
+        print(f"  {k}: {v}")
+
+
+def _gt_rows(poses_gt, kf_idx):
+    from .evalio.writers import trajectory_rows
+    T0 = poses_gt[kf_idx[0]]
+    return trajectory_rows([(poses_gt[i] @ T0.inv()).inv() for i in kf_idx])
+
+
+def _batch(args, cfg, frames, poses_gt=None, frame_ids=None):
+    """The batch replay (and ``--refine``) of host frames."""
     import torch
 
     from .bench import ate
-    from .config import SlamConfig
     from .engine.batch import BatchSlam
     from .engine.refine import global_refine
-    from .evalio.writers import trajectory_rows, write_trajectory
-    from .sim import StereoLineRenderer, house_segments, wave_trajectory
-
-    cfg = dataclasses.replace(
-        SlamConfig(), ba_window_size=args.ba_window_size,
-        max_num_iter=args.max_num_iter, rseed=args.rseed,
-        compute_dtype=args.dtype)
-    poses_gt = wave_trajectory(num_frames=args.frames)
-    ren = StereoLineRenderer(house_segments(), cfg.camera,
-                             noise_px=args.noise_px, seed=args.rseed)
-    frames = [ren.observe(T) for T in poses_gt]
+    from .evalio.writers import write_landmarks, write_trajectory
 
     eng = BatchSlam(cfg, device=args.device)
     t0 = time.perf_counter()
-    res = eng.run(frames)
+    res = eng.run(frames, frame_ids=frame_ids)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     wall = time.perf_counter() - t0
@@ -57,7 +77,7 @@ def cmd_sim(args):
     stats["kf_per_s"] = res.kf_count / max(wall, 1e-9)
     stats["device"] = str(eng.device)
     stats["dtype"] = str(eng.dtype)
-    if res.kf_count:
+    if res.kf_count and poses_gt is not None:
         stats["ate_m"] = ate(res.trajectory, [poses_gt[i] for i in kf_idx])
     print(f"replayed {len(frames)} frames -> {res.kf_count} keyframes in "
           f"{wall:.2f}s on {eng.device}")
@@ -73,49 +93,148 @@ def cmd_sim(args):
         stats["refine_final_cost"] = ref.final_cost
         stats["refine_num_cams"] = ref.num_cams
         stats["refine_num_obs"] = ref.num_obs
-        stats["refine_ate_m"] = ate(ref.trajectory,
-                                     [poses_gt[i] for i in kf_idx])
+        if poses_gt is not None:
+            stats["refine_ate_m"] = ate(ref.trajectory,
+                                        [poses_gt[i] for i in kf_idx])
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         write_trajectory(os.path.join(args.out, "trajectory.txt"),
                          res.trajectory)
+        write_landmarks(os.path.join(args.out, "landmarks.txt"),
+                        res.world_segments(min_len=1.0))
         if ref is not None:
             write_trajectory(os.path.join(args.out,
                                           "trajectory_refined.txt"),
                              ref.trajectory)
-        if res.kf_count:
-            T0 = poses_gt[kf_idx[0]]
+        if res.kf_count and poses_gt is not None:
             np.savetxt(os.path.join(args.out, "gt_trajectory.txt"),
-                       trajectory_rows([(poses_gt[i] @ T0.inv()).inv()
-                                        for i in kf_idx]), delimiter="\t")
-        with open(os.path.join(args.out, "stats.json"), "w") as f:
-            json.dump(stats, f, indent=2)
-    for k, v in stats.items():
-        print(f"  {k}: {v}")
+                       _gt_rows(poses_gt, kf_idx), delimiter="\t")
+        _write_stats(args.out, stats)
     return stats
+
+
+def _interactive(args, cfg, frames, poses_gt=None, normalized=True):
+    """The per-frame engine over (frame_id, obs) pairs (slslam_tpu/cli.py
+    cmd_sim / cmd_run / _finish)."""
+    from .checkpoint import save_checkpoint
+    from .engine import Slam
+    from .evalio.traj import ate_position_error
+    from .evalio.writers import trajectory_rows
+
+    if args.refine:
+        print("warning: --refine only applies to --engine batch; ignored "
+              "on the interactive engine", file=sys.stderr)
+    slam = Slam(cfg, device=args.device)
+    kf_frames = []
+    t0 = time.perf_counter()
+    n = 0
+    for frame_id, obs in frames:
+        if frame_id > args.stopfrm:
+            break
+        n += 1
+        if slam.process_frame(obs, frame_id, normalized=normalized):
+            kf_frames.append(frame_id)
+            if (args.checkpoint_every and args.out
+                    and len(kf_frames) % args.checkpoint_every == 0):
+                os.makedirs(args.out, exist_ok=True)
+                save_checkpoint(slam, os.path.join(args.out,
+                                                   "checkpoint.npz"))
+    wall = time.perf_counter() - t0
+    print(f"processed {n} frames -> {len(kf_frames)} keyframes in "
+          f"{wall:.2f}s ({len(kf_frames) / max(wall, 1e-9):.2f} kf/s) on "
+          f"{slam.device}")
+
+    stats = slam.post_processing()
+    stats["device"] = str(slam.device)
+    stats["dtype"] = str(slam.dtype)
+    gt_rows = None
+    if poses_gt is not None and kf_frames:
+        gt_rows = _gt_rows(poses_gt, kf_frames)
+        est = trajectory_rows(slam.trajectory())
+        stats["ate_m"] = ate_position_error(est, gt_rows)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        slam.save_trajectory(os.path.join(args.out, "trajectory.txt"))
+        slam.save_landmarks(os.path.join(args.out, "landmarks.txt"))
+        if gt_rows is not None:
+            np.savetxt(os.path.join(args.out, "gt_trajectory.txt"), gt_rows,
+                       delimiter="\t")
+        _write_stats(args.out, stats)
+    return stats
+
+
+def cmd_sim(args):
+    from .sim import StereoLineRenderer, house_segments, wave_trajectory
+
+    cfg = _config(args)
+    poses_gt = wave_trajectory(num_frames=args.frames)
+    poses_gt = poses_gt[:min(len(poses_gt), args.stopfrm + 1)]
+    ren = StereoLineRenderer(house_segments(), cfg.camera,
+                             noise_px=args.noise_px, seed=args.rseed)
+    if args.engine == "batch":
+        return _batch(args, cfg, [ren.observe(T) for T in poses_gt],
+                      poses_gt)
+    return _interactive(args, cfg, ((i, ren.observe(T))
+                                    for i, T in enumerate(poses_gt)),
+                        poses_gt)
+
+
+def cmd_run(args):
+    from .engine.batch import normalize_frames
+    from .frontend.io import ObsFileLoader
+
+    cfg = _config(args)
+    loader = ObsFileLoader(args.obs_dir)
+    if args.engine == "batch":
+        pairs = []
+        for frame_id, obs in loader:
+            if frame_id > args.stopfrm:
+                break
+            pairs.append((frame_id, obs))
+        frames = normalize_frames([o for _, o in pairs], cfg.camera)
+        return _batch(args, cfg, frames, frame_ids=[i for i, _ in pairs])
+    return _interactive(args, cfg, loader, normalized=False)
+
+
+def _add_common(p):
+    p.add_argument("--engine", choices=("interactive", "batch"),
+                   default="interactive",
+                   help="interactive = the per-frame engine (loop closure, "
+                        "checkpoints); batch = the whole replay on the card")
+    p.add_argument("--ba-window-size", type=int, default=10)
+    p.add_argument("--max-num-iter", type=int, default=10)
+    p.add_argument("--rseed", type=int, default=4,
+                   help="seed of the renderer and of the random streams")
+    p.add_argument("--robust", action="store_true", default=True)
+    p.add_argument("--no-robust", dest="robust", action="store_false")
+    p.add_argument("--stopfrm", type=int, default=99999)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the twins)")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "float64"))
+    p.add_argument("--refine", action="store_true",
+                   help="batch engine: follow the replay with one global "
+                        "bundle adjustment over every keyframe")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="interactive engine: save a resumable checkpoint "
+                        "into --out every N keyframes (0 = off)")
+    p.add_argument("--out", default=None, help="output directory")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="slslam_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("sim", help="replay the simulated house world")
+    p = sub.add_parser("sim", help="run on the simulated house world")
     p.add_argument("--frames", type=int, default=120)
     p.add_argument("--noise-px", type=float, default=0.5)
-    p.add_argument("--rseed", type=int, default=4,
-                   help="seed of the renderer and of the RANSAC generator")
-    p.add_argument("--ba-window-size", type=int, default=10)
-    p.add_argument("--max-num-iter", type=int, default=10)
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu runs the twins)")
-    p.add_argument("--refine", action="store_true",
-                   help="follow the replay with one global bundle "
-                        "adjustment over every keyframe")
-    p.add_argument("--dtype", default="float32",
-                   choices=("float32", "float64"))
-    p.add_argument("--out", default=None, help="output directory")
+    _add_common(p)
+    p.set_defaults(fn=cmd_sim)
+    p = sub.add_parser("run", help="replay line-track files from disk")
+    p.add_argument("--obs-dir", required=True)
+    _add_common(p)
+    p.set_defaults(fn=cmd_run)
     args = ap.parse_args(argv)
-    if args.cmd == "sim":
-        cmd_sim(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -9,12 +9,12 @@ condition once per iteration.  See the JAX module's docstring for the
 semantics (landmark slot pool, keyframe ring of the last 2W keyframes, the
 edge chain) and the reference lines they follow.
 
-Randomness: each replay draws RANSAC's Gumbel noise from a
-``torch.Generator`` seeded with ``cfg.rseed``; a ``gumbel_hook`` can inject
-the per-frame (H, Lp) noise instead, which is how the tests feed the JAX
-engine's stream.  ``carry_from_numpy`` / ``carry_to_numpy`` move a carry
-between the two engines (this system has no weights; the carry is its
-state).
+Randomness: each replay draws RANSAC's Gumbel noise and the BA init
+jitter (``cfg.ba_init_jitter``) from a ``torch.Generator`` seeded with
+``cfg.rseed``; a ``gumbel_hook`` / ``jitter_hook`` can inject the per-frame
+noise instead, which is how the tests feed the JAX engine's streams.
+``carry_from_numpy`` / ``carry_to_numpy`` move a carry between the two
+engines (this system has no weights; the carry is its state).
 """
 
 from __future__ import annotations
@@ -297,13 +297,23 @@ def _extend_endpoints(line, tt, pvn, update, obs, cfg_thr, cfg_ext):
 NoiseFn = Callable[[int], Optional[torch.Tensor]]
 
 
+def window_anchor(cfg: SlamConfig):
+    """(sigma_rot, sigma_t) of the window BA's camera anchors, or None when
+    either is 0 (engine/batch.py:521-527, engine/slam.py:614-618)."""
+    if cfg.window_anchor_sigma_rot > 0 and cfg.window_anchor_sigma_t > 0:
+        return (cfg.window_anchor_sigma_rot, cfg.window_anchor_sigma_t)
+    return None
+
+
 class FrameStep:
     """The per-frame step (engine/batch.py:292-603) for one set of shapes.
 
     ``step(carry, xs, has_obs, gumbel=None, generator=None)`` takes the
     frame's tensors ``xs = (obs (Om,8), slot (Om,), valid (Om,),
     retire_slot (Rm,), retire_valid (Rm,))`` and returns (carry, out).
-    ``has_obs`` is the host's copy of ``valid.any()``.
+    ``has_obs`` is the host's copy of ``valid.any()``.  ``jitter(shape)``
+    gives the standard-normal noise of ``cfg.ba_init_jitter`` (default:
+    drawn from ``generator``).
     """
 
     def __init__(self, cfg: SlamConfig, Wn, Lp, Om, Rm, Fmax, dtype,
@@ -351,7 +361,8 @@ class FrameStep:
 
     def step(self, carry: BatchCarry, xs, has_obs: bool,
              gumbel: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             jitter: Optional[Callable[[tuple], torch.Tensor]] = None):
         dev = self.device
         obs_f, slot_f, val_f, ret_s, ret_v = xs
         Lcap = self.Lp - 1
@@ -399,7 +410,7 @@ class FrameStep:
             return self._first(carry, obs_f, slot_f, val_f, curr_map,
                                curr_has, zeros_out)
         return self._normal(carry, obs_f, slot_f, val_f, curr_map, curr_has,
-                            zeros_out, kf, gumbel, generator)
+                            zeros_out, kf, gumbel, generator, jitter)
 
     def _triangulate(self, curr_map):
         tri = triangulate_lines(curr_map, self.cfg.camera.baseline,
@@ -430,7 +441,7 @@ class FrameStep:
             is_kf=torch.ones((), dtype=torch.bool, device=self.device))
 
     def _normal(self, c, obs_f, slot_f, val_f, curr_map, curr_has,
-                zeros_out, kf, gumbel, generator):
+                zeros_out, kf, gumbel, generator, jitter):
         cfg, Wn, Lcap = self.cfg, self.Wn, self.Lp - 1
         min_s = cfg.ransac_min_sample
         i32 = torch.int32
@@ -472,11 +483,16 @@ class FrameStep:
             streak = torch.where(failed, c.fail_streak + 1,
                                  torch.zeros_like(c.fail_streak))
             return c._replace(fail_streak=streak), out_base
+        if jitter is None:
+            def jitter(shape):
+                return torch.randn(shape, generator=generator,
+                                   dtype=self.dtype, device=self.device)
         return self._accept(c, res.wt, obs_f, slot_f, val_f, curr_map,
-                            curr_has, final_inl, out_base, kf, prev_pos)
+                            curr_has, final_inl, out_base, kf, prev_pos,
+                            jitter)
 
     def _accept(self, c, wt, obs_f, slot_f, val_f, curr_map, curr_has,
-                final_inl, out_base, kf, prev_pos):
+                final_inl, out_base, kf, prev_pos, jitter):
         cfg, dev, Wn, Lcap = self.cfg, self.device, self.Wn, self.Lp - 1
         W = cfg.ba_window_size
         baseline, huber = cfg.camera.baseline, cfg.huber_delta
@@ -531,6 +547,13 @@ class FrameStep:
         benign[:, 3] = 1.0
         line_p4 = geo.LINE_ENCODERS[cfg.line_param](
             torch.where(lm_active[..., None], lm_line, benign))
+        if cfg.ba_init_jitter:
+            # deterministic annealing jitter on the qualifying lines only
+            # (engine/batch.py:488-496; SlamConfig.ba_init_jitter)
+            noise = jitter(tuple(line_p4.shape)).to(dtype=self.dtype,
+                                                    device=dev)
+            line_p4 = line_p4 + (cfg.ba_init_jitter * noise
+                                 * qualify[:, None].to(self.dtype))
 
         ob = win_obs.reshape(Wn * self.Om, 8)
         ocam = torch.arange(Wn, dtype=i32,
@@ -547,7 +570,7 @@ class FrameStep:
         cam_out, line_out, stats = local_ba(
             win_pose, line_p4, ob, ocam, olin, ovalid, cam_free, qualify,
             baseline, huber, robust=cfg.robust, max_iters=cfg.max_num_iter,
-            line_param=cfg.line_param)
+            line_param=cfg.line_param, cam_anchor_sigmas=window_anchor(cfg))
 
         win_pose = torch.where(cam_valid[:, None], cam_out, win_pose)
         lm_line = torch.where(qualify[..., None],
@@ -701,30 +724,24 @@ class BatchSlam:
     ``device`` is required (no CPU fallback); ``dtype`` defaults to
     ``cfg.compute_dtype``.  ``gumbel_hook(frame_id)``,
     if given, returns the (H, Lp) Gumbel noise of a frame's RANSAC instead
-    of the engine's generator (seeded with ``cfg.rseed`` at each dispatch).
+    of the engine's generator (seeded with ``cfg.rseed`` at each dispatch);
+    ``jitter_hook(frame_id, shape)`` the standard-normal noise of
+    ``cfg.ba_init_jitter`` on a keyframe's lines.  JAX draws that noise
+    from ``fold_in(fold_in(PRNGKey(rseed), frame), 0x0B0A)``, a stream
+    torch cannot reproduce; the tests feed it through the hook.
     """
 
     def __init__(self, config: Optional[SlamConfig], device, dtype=None,
                  lm_capacity: Optional[int] = None,
-                 gumbel_hook: Optional[NoiseFn] = None):
+                 gumbel_hook: Optional[NoiseFn] = None,
+                 jitter_hook: Optional[Callable[[int, tuple],
+                                                torch.Tensor]] = None):
         self.cfg = config or SlamConfig()
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype or self.cfg.compute_dtype)
         self.lm_capacity = lm_capacity
         self.gumbel_hook = gumbel_hook
-        cfg = self.cfg
-        if cfg.window_anchor_sigma_rot > 0 and cfg.window_anchor_sigma_t > 0:
-            raise NotImplementedError(
-                "window anchors (cam_anchor_sigmas) are not ported yet "
-                "(ROADMAP.md Queue 1, open items of the port)")
-        if cfg.ba_init_jitter:
-            raise NotImplementedError(
-                "ba_init_jitter is not ported yet (ROADMAP.md Queue 1, "
-                "open items of the port)")
-        if cfg.line_param != "orth" and self.device.type == "cuda":
-            raise NotImplementedError(
-                f"line_param={cfg.line_param!r} on CUDA: the BA kernel "
-                "decodes orth lines only (ROADMAP.md Queue 1, open items)")
+        self.jitter_hook = jitter_hook
 
     def layout(self, frames, frame_ids=None, lifetime=None):
         """Host pre-pass: (pack, FrameStep, Lcap) for a sequence."""
@@ -774,18 +791,21 @@ class BatchSlam:
         pack, stepper, Lcap = self.layout(frames, frame_ids, lifetime)
         xs = self.frame_inputs(pack, stepper.Om)
         has_obs = pack.valid.any(axis=1)
-        gen = None
-        if self.gumbel_hook is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.cfg.rseed)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.cfg.rseed)
         carry = stepper.carry0()
         ys = []
         for f in range(len(frames)):
+            fidx = int(pack.frame_idx[f])
             gumbel = (None if self.gumbel_hook is None
-                      else self.gumbel_hook(int(pack.frame_idx[f])))
+                      else self.gumbel_hook(fidx))
+            jitter = None
+            if self.jitter_hook is not None:
+                def jitter(shape, fidx=fidx):
+                    return self.jitter_hook(fidx, shape)
             carry, out = stepper.step(carry, tuple(x[f] for x in xs),
                                       bool(has_obs[f]), gumbel=gumbel,
-                                      generator=gen)
+                                      generator=gen, jitter=jitter)
             ys.append(out)
         return carry, ys, Lcap
 

@@ -1,10 +1,12 @@
-"""NumPy (float64) host geometry: ``Pose``, ``so3_log`` and the batched
-orth line conversions.
+"""NumPy (float64) host geometry: ``Pose``, ``so3_log``, line transforms
+and the batched line conversions.
 
 A copy of the parts of ``slslam_tpu/hostgeom.py`` that the port calls
-(``Pose``, ``skew``, ``rodrigues``, ``so3_log``, and ``_normalize_rows``,
-``av_to_orth_np``, ``orth_to_av_np`` of :137-180 for the global refine),
-kept here so that the port imports nothing of the JAX package.
+(``Pose``, ``skew``, ``rodrigues``, ``so3_log``; ``line_to_pose``,
+``line_from_pose``, ``normalize``, ``rotation_angle``, ``lines_from_pose``
+of :98-135 for the interactive engine; ``_normalize_rows``,
+``av_to_orth_np``, ``orth_to_av_np``, ``av_to_aid_np``, ``aid_to_av_np`` of
+:137-210), kept here so that the port imports nothing of the JAX package.
 ``tests/test_torch_copies.py`` checks that the copies agree with the
 originals.  Reference semantics: the reference's src/gc.cpp.
 """
@@ -94,6 +96,34 @@ def so3_log(R):
     return (theta / s) * vee
 
 
+def line_to_pose(line_w, T: Pose):
+    cp = T.R @ line_w[:3] + T.t
+    dv = T.R @ line_w[3:]
+    return np.concatenate([cp, dv])
+
+
+def line_from_pose(line_c, T: Pose):
+    return line_to_pose(line_c, T.inv())
+
+
+def normalize(v):
+    n = np.linalg.norm(v)
+    return v / n if n > 0 else v
+
+
+def rotation_angle(R) -> float:
+    """|angle| of a rotation matrix, for threshold checks."""
+    return float(np.linalg.norm(so3_log(R)))
+
+
+def lines_from_pose(lines_c, T: Pose):
+    """(N, 6) (cp, dv) lines camera -> world, batched."""
+    Ti = T.inv()
+    cp = lines_c[:, :3] @ Ti.R.T + Ti.t
+    dv = lines_c[:, 3:] @ Ti.R.T
+    return np.concatenate([cp, dv], axis=1)
+
+
 def _normalize_rows(v):
     n = np.linalg.norm(v, axis=-1, keepdims=True)
     return np.where(n > 0, v / np.where(n > 0, n, 1.0), v)
@@ -137,3 +167,28 @@ def orth_to_av_np(orth):
                      s1 * s2 * s3 + c1 * c3,
                      s1 * c2], axis=1)
     return np.concatenate([-col2 * d[:, None], col1], axis=1)
+
+
+def av_to_aid_np(av):
+    """(N, 6) -> (N, 4), batched NumPy mirror of geometry.av_to_aid."""
+    a = av[:, :3]
+    x = av[:, 3:]
+    y = np.cross(a, x)
+    d_inv = np.linalg.norm(x, axis=1) / np.linalg.norm(y, axis=1)
+    xn = _normalize_rows(x)
+    yn = _normalize_rows(y)
+    z = np.cross(xn, yn)
+    aa = np.stack([so3_log(np.stack([xn[i], yn[i], z[i]], axis=1))
+                   for i in range(len(av))])
+    return np.concatenate([aa, d_inv[:, None]], axis=1)
+
+
+def aid_to_av_np(aid):
+    """(N, 4) -> (N, 6), batched NumPy mirror of geometry.aid_to_av."""
+    out = np.empty((len(aid), 6))
+    for i, row in enumerate(aid):
+        R = rodrigues(row[:3])
+        d = 1.0 / row[3]
+        out[i, :3] = R[:, 2] * d
+        out[i, 3:] = R[:, 0]
+    return out

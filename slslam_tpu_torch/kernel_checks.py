@@ -3,8 +3,8 @@ at any shape a path launched a kernel at), and the least time the card
 could take for each kernel's work.
 
 Shared by ``chip_smoke.py`` (phases 1 and 2 at the house shapes below,
-phase 6 at every shape ``kernels.launch_shapes`` recorded in the
-loop-closure run) and the tests (``tests/test_torch_gpu.py``,
+phases 6 and 7 at every shape ``kernels.launch_shapes`` recorded in the
+loop-closure and interactive runs) and the tests (``tests/test_torch_gpu.py``,
 ``SLSLAM_GPU_TESTS=1``; the rounding witnesses on the CPU).  Inputs are
 made from a numpy seed.
 
@@ -314,6 +314,36 @@ def check_k2(dtype, device, variant="full", shape=None, pad_frac=0.008):
         if dropped.numel() == 0 or torch.any(got[5][dropped] != 0):
             raise AssertionError(f"fused_eval/lm {dtype}: a dropped row of "
                                  "Wb is not exactly zero")
+    return errs
+
+
+# (C, L, O) of the interactive engine's window at the bench's buckets
+# (obs 2048, cams 48, lines 128; bench.interactive_config)
+INTERACTIVE_WINDOW = (48, 128, 2048)
+
+
+def check_k2_chart(dtype, device, variant="full", line_param="aid",
+                   shape=INTERACTIVE_WINDOW):
+    """K2 through the chain rule (``kernels.fused_eval`` with aid or asd
+    lines) against the twin that differentiates in that parameterization,
+    on the same device, at ``shape``; the case's lines are k2_case's orth
+    lines re-encoded.  Returns {output: (normalized error, max abs
+    error)}; raises past K2_TOL."""
+    from . import geometry as geo
+    args, plan = k2_variant_case(variant, dtype, device, shape)
+    av = geo.orth_to_av(args["line_orth"].double())
+    args["line_orth"] = geo.LINE_ENCODERS[line_param](av).to(dtype)
+    got = kernels.fused_eval(**args, line_param=line_param, variant=variant,
+                             plan=plan)
+    ref = kernels.fused_eval_twin(**args, line_param=line_param,
+                                  variant=variant)
+    errs = {}
+    for name, a, b in zip(K2_VARIANT_OUTPUTS[variant], got, ref):
+        errs[name] = errors(a, b)
+        if not errs[name][0] <= K2_TOL[dtype]:
+            raise AssertionError(f"fused_eval/{variant} {line_param} {dtype} "
+                                 f"{name}: error {errs[name][0]} > "
+                                 f"{K2_TOL[dtype]}")
     return errs
 
 

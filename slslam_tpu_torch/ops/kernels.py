@@ -24,7 +24,10 @@ reductions, in four variants (``VARIANTS``):
   (``schur_cg._eval_system_lm``).
 
 Replaces ``fused_eval_pallas`` with its two kernels
-(pallas_kernels.py:278-428).  Source: ``csrc/fused_eval.cu``.
+(pallas_kernels.py:278-428).  Source: ``csrc/fused_eval.cu``.  K2 decodes
+orth lines; the aid and asd parameterizations go through it by the chain
+rule (``fused_eval_chart``): each line is decoded to orth, K2 evaluates,
+and the line blocks are mapped by M = d orth / d p, one 4x4 per line.
 
 Each wrapper takes its plain-PyTorch twin for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  The kernels are built with
@@ -47,6 +50,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from .. import geometry as geo
 from .residuals import (lba_residual_jac_batch, lba_residual_jac_cam_batch,
                         lba_residual_jac_line_batch, robust_weights)
 
@@ -432,6 +436,57 @@ def _ticket_for(dev, stream):
     return t
 
 
+def line_chart_jacobian(line_p, line_param):
+    """Orth lines of (L, 4) ``line_p`` in ``line_param`` and M = d orth /
+    d p (L, 4, 4): ``torch.func.jacfwd`` of geometry's orth encoder after
+    the parameterization's decoder, one 4x4 per line."""
+    def chart(p):
+        out = geo.av_to_orth(geo.LINE_DECODERS[line_param](p))
+        return out, out
+    M, lo = torch.func.vmap(torch.func.jacfwd(chart, has_aux=True))(line_p)
+    return lo, M
+
+
+def fused_eval_chart(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
+                     cam_free_f, line_free_f, baseline, huber_delta,
+                     robust=True, line_param="aid", variant="full", plan=None,
+                     evaluate=None):
+    """The evaluate of lines ``line_orth`` (L, 4) given in ``line_param``
+    (the argument keeps ``fused_eval``'s name) through an orth evaluate
+    ``evaluate`` (default: the orth K2 path of ``fused_eval``) by the chain
+    rule: the residual depends on the line only, not on the scale of its
+    Plücker vector, so r(p) = r_orth(orth(p)) and each line Jacobian is
+    J_orth M.  Hll <- M^T Hll M, gl <- M^T gl, W <- W M (``lm``: Wb <- Wb M
+    per row); cost and the camera blocks are unchanged.  ``cams`` fixes the
+    lines and needs no M."""
+    evaluate = evaluate or _fused_eval_orth
+    line_p = line_orth
+    if variant == "cams":
+        lo = geo.av_to_orth(geo.LINE_DECODERS[line_param](line_p))
+        return evaluate(cam_wt, lo.contiguous(), obs, obs_cam, obs_line,
+                        w_valid, cam_free_f, line_free_f, baseline,
+                        huber_delta, robust, "orth", variant, plan)
+    lo, M = line_chart_jacobian(line_p, line_param)
+    # a fixed line's blocks are zero: keep them zero where its chart is not
+    # finite (0 * NaN); a free line's NaN propagates as in the direct twin
+    M = torch.where((line_free_f[:, None, None] > 0) | torch.isfinite(M), M,
+                    torch.zeros_like(M))
+    out = evaluate(cam_wt, lo.contiguous(), obs, obs_cam, obs_line, w_valid,
+                   cam_free_f, line_free_f, baseline, huber_delta, robust,
+                   "orth", variant, plan)
+    Mt = M.transpose(1, 2)
+    if variant == "lines":
+        Hll, gl, cost_l = out
+        return Mt @ Hll @ M, (Mt @ gl[..., None])[..., 0], cost_l
+    cost, Hcc, Hll, gc, gl, W = out
+    Hll = Mt @ Hll @ M
+    gl = (Mt @ gl[..., None])[..., 0]
+    if variant == "lm":
+        ol = torch.clamp(obs_line.long(), 0, line_p.shape[0] - 1)
+        return cost, Hcc, Hll, gc, gl, W @ M[ol]
+    return cost, Hcc, Hll, gc, gl, torch.einsum("clab,lbd->clad", W, M)
+
+
 def fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
                cam_free_f, line_free_f, baseline, huber_delta,
                robust=True, line_param="orth", variant="full", plan=None):
@@ -448,8 +503,9 @@ def fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
 
     ``plan``: ``ba_plan(obs_cam, obs_line, w_valid, C, L, variant)``, built
     once per solve; without one the wrapper builds it.  CPU tensors take
-    the twin; CUDA tensors launch K2 (orth lines, Huber or plain least
-    squares), one launch per call, deterministic."""
+    the twin; CUDA tensors launch K2 (Huber or plain least squares), one
+    launch per call, deterministic: orth lines directly, aid and asd lines
+    through ``fused_eval_chart``."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown fused_eval variant {variant!r}")
     if _device_kind("fused_eval", cam_wt) == "cpu":
@@ -457,10 +513,21 @@ def fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
                                w_valid, cam_free_f, line_free_f, baseline,
                                huber_delta, robust, line_param, variant)
     if line_param != "orth":
-        raise NotImplementedError(
-            f"line_param={line_param!r} on the CUDA path: the kernel decodes "
-            "orth lines only (ROADMAP Queue 1, P4 open items: aid/asd on the "
-            "kernel path)")
+        return fused_eval_chart(cam_wt, line_orth, obs, obs_cam, obs_line,
+                                w_valid, cam_free_f, line_free_f, baseline,
+                                huber_delta, robust, line_param, variant,
+                                plan)
+    return _fused_eval_orth(cam_wt, line_orth, obs, obs_cam, obs_line,
+                            w_valid, cam_free_f, line_free_f, baseline,
+                            huber_delta, robust, line_param, variant, plan)
+
+
+def _fused_eval_orth(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
+                     cam_free_f, line_free_f, baseline, huber_delta, robust,
+                     line_param, variant, plan):
+    """K2's launch on CUDA tensors of orth lines."""
+    if _device_kind("fused_eval", cam_wt) != "cuda" or line_param != "orth":
+        raise ValueError("K2 takes CUDA tensors of orth lines")
     C, L, O = cam_wt.shape[0], line_orth.shape[0], obs.shape[0]
     if C < 1 or L < 1:
         raise ValueError("fused_eval: needs at least one camera and line")

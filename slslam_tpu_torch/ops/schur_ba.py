@@ -20,8 +20,11 @@ every LM iteration.  On CPU tensors the kernels' plain twins run.
 (the deferred loop closure's joint span polish): their residuals and
 Jacobians are ``ops/pose_graph.py``'s, their per-camera sums and their
 off-diagonal coupling blocks in the reduced camera system are K1 sums over
-a fixed block key.  Not ported (it raises NotImplementedError):
-``cam_anchor_sigmas`` (ROADMAP.md, Queue 1 open items).
+a fixed block key.  ``cam_anchor_sigmas`` anchors every free camera at its
+initial pose (the interactive engine's window anchors): per-camera adds
+around K2's output, a diagonal on Hcc, its gradient on gc and its cost in
+the trial cost.  ``staged_local_ba`` is lines-GN followed by ``local_ba``,
+the interactive engine's window solve.
 """
 
 from __future__ import annotations
@@ -56,11 +59,33 @@ class BAStats(NamedTuple):
     final_cost: torch.Tensor
 
 
-def _unported(cam_anchor_sigmas):
-    if cam_anchor_sigmas is not None:
-        raise NotImplementedError(
-            "cam_anchor_sigmas is not ported yet (ROADMAP.md Queue 1, "
-            "open items of the port)")
+class CamAnchor(NamedTuple):
+    """A weak Gaussian anchor of every free camera at its initial pose
+    (schur_ba.py:479-489): residual weights ``aw`` (6,) = 1/sigma_rot x 3,
+    1/sigma_t x 3."""
+
+    pose: torch.Tensor    # (C, 6) the initial cam_wt
+    aw: torch.Tensor      # (6,)
+
+    def terms(self, cw, cam_free_f):
+        """(cost_a, g_a (C, 6)) at cameras ``cw``."""
+        d = (cw - self.pose) * cam_free_f[:, None]
+        return 0.5 * torch.sum((d * self.aw) ** 2), d * (self.aw * self.aw)
+
+    def hessian(self, cam_free_f):
+        """H_a (C, 6, 6): diag(aw^2) on every free camera."""
+        return torch.diag(self.aw * self.aw)[None] * cam_free_f[:, None, None]
+
+
+def make_cam_anchor(cam_anchor_sigmas, cam_wt):
+    """``CamAnchor`` from (sigma_rot, sigma_t) at the initial ``cam_wt``."""
+    sr, st = (torch.as_tensor(x, dtype=cam_wt.dtype, device=cam_wt.device)
+              for x in cam_anchor_sigmas)
+    if not (bool(sr > 0) and bool(st > 0)):
+        raise ValueError(f"cam_anchor_sigmas must be positive, got "
+                         f"({float(sr)}, {float(st)})")
+    one = torch.ones(3, dtype=cam_wt.dtype, device=cam_wt.device)
+    return CamAnchor(cam_wt, torch.cat([one / sr, one / st]))
 
 
 class PriorEdges(NamedTuple):
@@ -300,9 +325,11 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
     constraints T_j ~ c T_i with per-edge (sigma_rot, sigma_t)
     (schur_ba.py:435-447); pad with zero-weight self-edges (sig ~ 1e9).
 
+    ``cam_anchor_sigmas``: (sigma_rot, sigma_t), a weak Gaussian anchor of
+    every free camera at its initial pose (schur_ba.py:448-459, 479-489).
+
     Returns (cam_wt', line_orth', BAStats); ``BAStats.iterations`` counts
     LM steps, accepted or not."""
-    _unported(cam_anchor_sigmas)
     dtype, dev = cam_wt.dtype, cam_wt.device
     ftol, ptol = _tolerances(dtype)
     cam_free_f = cam_free.to(dtype)
@@ -320,11 +347,17 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
                              "pose_only")
         prior = make_prior_edges(prior_edges, cam_wt.shape[0], dtype, dev,
                                  blocks="offdiag")
+    anchor = None
+    if cam_anchor_sigmas is not None:
+        anchor = make_cam_anchor(cam_anchor_sigmas, cam_wt)
+        H_a = anchor.hessian(cam_free_f)
 
     def cost_only(cw, lo):
         r = lba_residual_batch(cw[oc], lo[ol], obs, baseline,
                                line_param=line_param)
         cost = torch.sum(_masked_cost(r, w_valid, huber_delta, robust))
+        if anchor is not None:
+            cost = cost + anchor.terms(cw, cam_free_f)[0]
         if prior is not None:
             # the full (unmasked) residual, as prior_terms' cost
             cost = cost + prior_cost(prior, cw)
@@ -345,6 +378,8 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
                 cam.contiguous(), line.contiguous(), obs, obs_cam, obs_line,
                 w_valid, cam_free_f, baseline, huber_delta, robust,
                 line_param, plan)
+            if anchor is not None:
+                Hcc, gc = Hcc + H_a, gc + anchor.terms(cam, cam_free_f)[1]
             dc, damp_quad, g_dot_d = _solve_step_pose(Hcc, gc, lam,
                                                       cam_free_f)
             dl = torch.zeros_like(line)
@@ -353,6 +388,8 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
                 cam.contiguous(), line.contiguous(), obs, obs_cam, obs_line,
                 w_valid, cam_free_f, line_free_f, baseline, huber_delta,
                 robust, line_param, plan)
+            if anchor is not None:
+                Hcc, gc = Hcc + H_a, gc + anchor.terms(cam, cam_free_f)[1]
             Hoff = None
             if prior is not None:
                 _, gc_e, Hcc_e, Hoff = prior_terms(prior, cam, cam_free_f)
@@ -393,3 +430,22 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
     stats = BAStats(torch.tensor(it, dtype=torch.int32, device=dev), cost0,
                     cost)
     return cam, line, stats
+
+
+def staged_local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
+                    cam_free, line_free, baseline, huber_delta, robust=True,
+                    max_iters=10, line_param="orth", gn_iters=4,
+                    cam_anchor_sigmas=None, gn_free=None):
+    """lines-GN pre-stage, then ``local_ba`` (schur_ba.py:661-682): the
+    interactive engine's window solve.  ``gn_free`` restricts the pre-stage
+    to a subset of lines; default ``line_free``."""
+    if gn_iters > 0:
+        line_orth = lines_gn(cam_wt, line_orth, obs, obs_cam, obs_line,
+                             obs_valid,
+                             line_free if gn_free is None else gn_free,
+                             baseline, huber_delta, robust=robust,
+                             iters=gn_iters, line_param=line_param)
+    return local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
+                    cam_free, line_free, baseline, huber_delta, robust=robust,
+                    max_iters=max_iters, line_param=line_param,
+                    cam_anchor_sigmas=cam_anchor_sigmas)

@@ -4,16 +4,20 @@ Port of ``slslam_tpu/ops/vo_pipeline.py`` (SLAM::pose_estimation's device
 work, slam.cpp:244-319): the RANSAC stage, the Ceres motion polish
 (slam.cpp:578-675) as a 4-camera pose-only instance of the Schur-LM solver
 (cam 0 free, all lines fixed, inlier observations in both frames), and the
-final scoring under the polished motion.
+final scoring under the polished motion.  ``vo_pipeline`` is the
+interactive engine's entry: host correspondences padded to a capacity
+bucket, as engine/slam.py:275-286 pads them for JAX's jitted pipeline.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .. import geometry as geo
+from ..config import bucket_for
 from .ransac import ransac_stage
 from .residuals import score_error_hyp_obs
 from .schur_ba import local_ba
@@ -64,3 +68,26 @@ def vo_body(obs0, obs1, lines_av, valid, baseline, error_thr, huber_delta,
                                        baseline)[0]
     return VOResult(wt, rr.best_score, rr.best_wt, final_errors,
                     torch.sum(rr.inliers.to(torch.int32)))
+
+
+def vo_pipeline(obs0, obs1, lines_av, baseline, error_thr, huber_delta,
+                buckets, device, dtype, **kw):
+    """VO of N host correspondences, obs0/obs1 (N, 8) and lines (N, 6) in
+    the frame of obs0 (numpy), padded to ``bucket_for(N, buckets)`` rows
+    (padding: zero observations, a benign unit direction, invalid) and run
+    by ``vo_body`` on ``device``; ``kw`` are vo_body's options.  Returns
+    the padded ``VOResult``."""
+    N = len(obs0)
+    Nb = bucket_for(N, buckets)
+    o0 = np.zeros((Nb, 8))
+    o1 = np.zeros((Nb, 8))
+    ln = np.zeros((Nb, 6))
+    ln[:, 5] = 1.0
+    valid = np.zeros(Nb, bool)
+    o0[:N], o1[:N], ln[:N], valid[:N] = obs0, obs1, lines_av, True
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return vo_body(t(o0), t(o1), t(ln), torch.as_tensor(valid, device=device),
+                   baseline, error_thr, huber_delta, **kw)

@@ -1,6 +1,7 @@
 """Stereo line-segment renderer: world segments -> per-frame observations.
 
-A copy of ``StereoLineRenderer.observe`` (with the helpers it calls) from
+A copy of ``StereoLineRenderer.observe``, ``observe_pixels`` and
+``write_sequence`` (with the helpers they call) from
 ``slslam_tpu/sim/render.py``.  It produces the observation contract of the
 reference's line-track files (src/slam.cpp:85-95), in normalized camera
 coordinates: left endpoint pair then right pair, with perfect data
@@ -13,6 +14,8 @@ left-frame coordinates p has right-frame coordinates p - (baseline, 0, 0)
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -121,3 +124,25 @@ class StereoLineRenderer:
                     0.0, self.noise_px / self.cam.focal_length, size=8)
             obs[sid] = o
         return obs
+
+    def observe_pixels(self, T_wc: Pose):
+        """Same as observe() but in pixel coordinates (the file format)."""
+        c = self.cam
+        out = {}
+        for sid, o in self.observe(T_wc).items():
+            px = o.copy()
+            px[0::2] = px[0::2] * c.fx + c.cx
+            px[1::2] = px[1::2] * c.fy + c.cy
+            out[sid] = px
+        return out
+
+    def write_sequence(self, out_dir, poses):
+        """Write %04d.txt line-track files in the reference format."""
+        os.makedirs(out_dir, exist_ok=True)
+        for i, T in enumerate(poses):
+            rows = self.observe_pixels(T)
+            path = os.path.join(out_dir, f"{i:04d}.txt")
+            with open(path, "w") as f:
+                for sid, px in sorted(rows.items()):
+                    vals = " ".join(f"{v:.6f}" for v in px)
+                    f.write(f"{sid} {vals} 0\n")

@@ -179,13 +179,20 @@ def test_empty_frames_are_skipped():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.BatchSlam(dataclasses.replace(CFG, ba_init_jitter=0.1),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.BatchSlam(dataclasses.replace(CFG, window_anchor_sigma_rot=0.1,
-                                         window_anchor_sigma_t=0.1),
-                     device="cpu")
+    """ba_init_jitter, window anchors and aid / asd lines are ported now
+    (tests/test_torch_batch_options.py); what stays unported is the
+    interactive engine's sharded mode, and the window anchors need
+    positive sigmas."""
+    for over in (dict(ba_init_jitter=0.1), dict(line_param="aid"),
+                 dict(window_anchor_sigma_rot=0.1,
+                      window_anchor_sigma_t=0.1)):
+        tb.BatchSlam(dataclasses.replace(CFG, **over), device="cpu")
+    from slslam_tpu_torch.engine import Slam
+    with pytest.raises(NotImplementedError, match="P12"):
+        Slam(dataclasses.replace(CFG, mesh_devices=2), device="cpu")
+    from slslam_tpu_torch.ops.schur_ba import make_cam_anchor
+    with pytest.raises(ValueError, match="positive"):
+        make_cam_anchor((0.0, 0.1), torch.zeros(2, 6))
 
 
 def test_cuda_request_without_cuda_raises():
@@ -197,8 +204,8 @@ def test_cuda_request_without_cuda_raises():
 
 def test_cli_writes_reference_trajectory(tmp_path):
     out = tmp_path / "run"
-    cli_main(["sim", "--frames", "6", "--device", "cpu", "--dtype",
-              "float64", "--out", str(out)])
+    cli_main(["sim", "--engine", "batch", "--frames", "6", "--device",
+              "cpu", "--dtype", "float64", "--out", str(out)])
     rows = np.loadtxt(out / "trajectory.txt", ndmin=2)
     assert rows.shape[1] == 7 and 1 <= rows.shape[0] <= 6
     assert os.path.isfile(out / "stats.json")

@@ -72,7 +72,8 @@ def test_bench_lc_prints_the_contract_on_cpu(capsys, as_extra):
     (dict(), ["batch", "lc extra"]),
     (dict(BENCH_LC="0"), ["batch"]),
     (dict(BENCH_BUDGET_S="150"), ["batch"]),
-    (dict(BENCH_MODE="lc"), ["lc"])])
+    (dict(BENCH_MODE="lc"), ["lc"]),
+    (dict(BENCH_MODE="interactive"), ["interactive"])])
 def test_main_runs_the_modes(monkeypatch, env, expected):
     """The batch mode appends the lc line when 200 s of the budget remain
     and BENCH_LC is not 0 (bench.py:555-566); BENCH_MODE=lc runs lc
@@ -82,6 +83,8 @@ def test_main_runs_the_modes(monkeypatch, env, expected):
                         lambda *a, **k: ran.append("batch"))
     monkeypatch.setattr(bench, "bench_lc", lambda *a, **k: ran.append(
         "lc extra" if k.get("as_extra") else "lc"))
+    monkeypatch.setattr(bench, "bench_interactive", lambda *a, **k: (
+        ran.append("interactive"), (1.0, {}))[1])
     for key in ("BENCH_LC", "BENCH_BUDGET_S", "BENCH_MODE"):
         monkeypatch.delenv(key, raising=False)
     for key, value in env.items():
@@ -98,8 +101,9 @@ def test_bench_needs_a_card_by_default():
 
 
 def test_cli_refine_on_cpu(tmp_path, capsys):
-    cli_main(["sim", "--frames", "12", "--device", "cpu", "--dtype",
-              "float64", "--refine", "--out", str(tmp_path)])
+    cli_main(["sim", "--engine", "batch", "--frames", "12", "--device",
+              "cpu", "--dtype", "float64", "--refine", "--out",
+              str(tmp_path)])
     stats = json.loads((tmp_path / "stats.json").read_text())
     for key in ("refine_wall_s", "refine_iterations", "refine_initial_cost",
                 "refine_final_cost", "refine_num_cams", "refine_num_obs",
@@ -111,3 +115,22 @@ def test_cli_refine_on_cpu(tmp_path, capsys):
     assert stats["refine_final_cost"] < stats["refine_initial_cost"]
     rows = np.loadtxt(tmp_path / "trajectory_refined.txt")
     assert rows.shape[0] == K and np.all(np.isfinite(rows))
+
+
+def test_bench_interactive_on_cpu():
+    """BENCH_MODE=interactive's workload at 8 frames (3 of warm-up) on the
+    CPU: bench.py's keys (bench.py:510-522), every measured frame a
+    keyframe."""
+    kf_per_s, rec = bench.bench_interactive("cpu", dtype="float64",
+                                            num_frames=8, warmup_frames=3)
+    for key in ("mean_rate_kf_s", "median_frame_ms", "ba_mean_ms",
+                "vo_mean_ms", "avg_ba_iterations", "keyframes",
+                "measured_frames", "post_processing"):
+        assert key in rec, key
+    assert rec["mode"] == "interactive"
+    assert rec["keyframes"] == rec["measured_frames"] == 5
+    assert math.isclose(kf_per_s, 1e3 / rec["median_frame_ms"])
+    assert rec == json.loads(json.dumps(rec))
+    cfg = bench.interactive_config("float32")
+    assert (cfg.obs_buckets, cfg.cam_buckets, cfg.line_buckets,
+            cfg.corr_buckets) == ((2048,), (48,), (128,), (128,))

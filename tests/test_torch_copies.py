@@ -3,7 +3,9 @@ and the port's independence from the JAX package.
 
 slslam_tpu_torch keeps cited copies of what it needs from slslam_tpu.config,
 slslam_tpu.hostgeom, slslam_tpu.sim (house, wave, renderer, village,
-tracks), slslam_tpu.evalio.writers, the numpy parts of
+tracks), slslam_tpu.evalio (writers, traj), slslam_tpu.utils.stopwatch,
+slslam_tpu.engine.state, slslam_tpu.frontend.io, the native bindings of
+slslam_tpu.native, the numpy parts of
 slslam_tpu.engine.refine, slslam_tpu.ops.schur_cg and
 slslam_tpu.engine.batch_lc, and the numpy vocabulary training of
 slslam_tpu.loopclosure.voctree.  These tests hold each copy to its
@@ -303,7 +305,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(mods) > 15
     for m in ("slslam_tpu_torch.loopclosure",
               "slslam_tpu_torch.ops.pose_graph",
-              "slslam_tpu_torch.engine.batch_lc"):
+              "slslam_tpu_torch.engine.batch_lc",
+              "slslam_tpu_torch.engine.slam",
+              "slslam_tpu_torch.checkpoint", "slslam_tpu_torch.native",
+              "slslam_tpu_torch.frontend.io"):
         assert m in mods, m
 
 
@@ -335,3 +340,130 @@ def test_port_sources_name_no_jax_import():
                 if n.split(".")[0] in ("jax", "slslam_tpu"):
                     found.append((os.path.relpath(path, REPO), n))
     assert found == []
+
+
+def test_interactive_hostgeom_identical():
+    rng = np.random.default_rng(9)
+    av = _lines_av(40, seed=9)[3:]
+    for R in _rotations():
+        Tj = jhost.Pose(R, rng.standard_normal(3))
+        Tt = thost.Pose(Tj.R, Tj.t)
+        for line in av[:5]:
+            np.testing.assert_array_equal(thost.line_to_pose(line, Tt),
+                                          jhost.line_to_pose(line, Tj))
+            np.testing.assert_array_equal(thost.line_from_pose(line, Tt),
+                                          jhost.line_from_pose(line, Tj))
+        np.testing.assert_array_equal(thost.lines_from_pose(av, Tt),
+                                      jhost.lines_from_pose(av, Tj))
+        assert thost.rotation_angle(R) == jhost.rotation_angle(R)
+    for v in (np.zeros(3), av[0, 3:]):
+        np.testing.assert_array_equal(thost.normalize(v), jhost.normalize(v))
+    aid = jhost.av_to_aid_np(av)
+    np.testing.assert_array_equal(thost.av_to_aid_np(av), aid)
+    np.testing.assert_array_equal(thost.aid_to_av_np(aid),
+                                  jhost.aid_to_av_np(aid))
+
+
+def test_traj_metrics_and_stopwatch_identical():
+    from slslam_tpu.evalio import traj as jtraj
+    from slslam_tpu.utils import stopwatch as jsw
+    from slslam_tpu_torch.evalio import traj as ttraj
+    from slslam_tpu_torch.utils import stopwatch as tsw
+    rng = np.random.default_rng(2)
+    a, b = rng.standard_normal((30, 7)), rng.standard_normal((25, 7))
+    for name in ("ate_position_error", "ate_matlab_literal", "ate_aligned"):
+        assert getattr(ttraj, name)(a, b) == getattr(jtraj, name)(a, b)
+    np.testing.assert_array_equal(ttraj.align_heading(a),
+                                  jtraj.align_heading(a))
+    for sw in (jsw.StopWatch(), tsw.StopWatch()):
+        sw.tock("never opened")
+        for _ in range(3):
+            sw.tick("c")
+            sw.tock("c")
+        assert sw.stats("c").count == 3 and sw.stats("c").mean >= 0.0
+        assert sw.stats("none").mean == 0.0 and sw.elapsed() > 0.0
+
+
+def test_map_state_identical():
+    from slslam_tpu.engine import state as jst
+    from slslam_tpu_torch.engine import state as tst
+    rng = np.random.default_rng(4)
+    obs = [(int(k), rng.standard_normal(8)) for k in (3, 1, 7)]
+    for mod, P in ((jst, jhost.Pose), (tst, thost.Pose)):
+        lm = mod.Landmark(line=np.ones(6), init_kfid=1)
+        assert lm.obs_arrays()[1].shape == (0, 8)
+        lm.obs_vec.extend(obs)
+        k, o = lm.obs_arrays()
+        np.testing.assert_array_equal(k, [3, 1, 7])
+        np.testing.assert_array_equal(o, np.stack([x for _, x in obs]))
+        e = mod.Edge.from_pose(P(jhost.rodrigues([0.1, 0.2, 0.3]),
+                                 [1.0, 2.0, 3.0]))
+        np.testing.assert_array_equal(e.inverse().C.t, e.T.inv().t)
+        st = mod.MapState()
+        assert st.last_kf_id() is None
+        st.kfs[4] = mod.Keyframe(T=P())
+        assert st.last_kf_id() == 4
+    assert ([f.name for f in dataclasses.fields(jst.Landmark)]
+            == [f.name for f in dataclasses.fields(tst.Landmark)])
+
+
+def test_obs_files_and_writers_identical(tmp_path):
+    """The renderer's line-track files, their loader (native and numpy
+    paths, a malformed line, a missing frame 0) and the landmark writer."""
+    from slslam_tpu.frontend import io as jio
+    from slslam_tpu_torch.frontend import io as tio
+    poses = jsim.wave_trajectory(400)[:5]
+    kw = dict(noise_px=0.5, seed=3)
+    jsim.StereoLineRenderer(jsim.house_segments(), jconfig.CameraConfig(),
+                            **kw).write_sequence(str(tmp_path / "j"), poses)
+    tsim.StereoLineRenderer(tsim.house_segments(), tconfig.CameraConfig(),
+                            **kw).write_sequence(
+        str(tmp_path / "t"), [thost.Pose(T.R, T.t) for T in poses])
+    for i in range(5):
+        name = f"{i:04d}.txt"
+        assert ((tmp_path / "j" / name).read_bytes()
+                == (tmp_path / "t" / name).read_bytes())
+    (tmp_path / "t" / "0000.txt").unlink()
+    with open(tmp_path / "t" / "0003.txt", "a") as f:
+        f.write("oops not a row\n")
+    got = list(tio.ObsFileLoader(str(tmp_path / "t")))
+    want = list(jio.ObsFileLoader(str(tmp_path / "t")))
+    assert [i for i, _ in got] == [i for i, _ in want] == list(range(5))
+    for (_, a), (_, b) in zip(got, want):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    segs = [np.arange(6.0) + k for k in range(4)]
+    jwriters.write_landmarks(tmp_path / "jl.txt", segs)
+    twriters.write_landmarks(tmp_path / "tl.txt", segs)
+    assert ((tmp_path / "jl.txt").read_bytes()
+            == (tmp_path / "tl.txt").read_bytes())
+
+
+def test_native_builds_outside_native_dir(tmp_path, monkeypatch):
+    """The port's native library builds into its build directory, never
+    into the repository's native/, and parses and walks as JAX's
+    binding."""
+    from slslam_tpu import native as jnative
+    from slslam_tpu_torch import native as tnative
+    native_dir = os.path.join(REPO, "native")
+
+    def listing():
+        return {f: os.stat(os.path.join(native_dir, f)).st_mtime_ns
+                for f in os.listdir(native_dir)}
+
+    before = listing()
+    monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_tried", False)
+    assert tnative.available(), tnative.build_error
+    built = os.listdir(tmp_path / "build")
+    assert any(f.startswith("libslslam_native_") and f.endswith(".so")
+               for f in built)
+    assert listing() == before
+    path = tmp_path / "obs.txt"
+    path.write_text("3 1 2 3 4 5 6 7 8 0\n9 0.5 0 0 0 0 0 0 1 0\n")
+    a, b = tnative.parse_obs_file(str(path)), jnative.parse_obs_file(str(path))
+    assert sorted(a) == sorted(b) == [3, 9]
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])

@@ -9,7 +9,9 @@ launch keeps its own last-block counter, so every result equals an eager
 launch's bit for bit); the line-major plan's shapes; and a short global
 refine on the card against the same refine on the CPU; and the gaps of
 the prior-edge window solve and of a 1-round refine, card against CPU,
-beside what rounding alone does to the CPU's result.  They run only
+beside what rounding alone does to the CPU's result; K2 with aid and asd
+lines through the chain rule; and the interactive engine on the card
+against the CPU.  They run only
 with SLSLAM_GPU_TESTS=1 on a machine with an NVIDIA GPU and nvcc, and skip
 otherwise.  The file imports no jax, so on a machine without it run
 
@@ -359,3 +361,53 @@ def test_global_ba_cg_prior_c_on_gpu_matches_cpu(cuda_device):
     cc, _, sc = run("cpu")
     assert int(sg.iterations) == int(sc.iterations) > 2
     assert float(torch.max(torch.abs(cg.cpu() - cc))) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("line_param", ["aid", "asd"])
+@pytest.mark.parametrize("variant", ["full", "lines", "lm", "cams"])
+def test_fused_eval_chain_rule_on_gpu(cuda_device, variant, line_param):
+    """K2 with aid / asd lines (decoded to orth, the line blocks mapped by
+    d orth / d p) against the twin that differentiates in aid / asd, at
+    the interactive window's shape, float64 and float32."""
+    key = f"fused_eval/{variant}"
+    for dtype in (torch.float64, torch.float32):
+        before = kernels.launch_counts[key]
+        kernel_checks.check_k2_chart(dtype, cuda_device, variant, line_param)
+        assert kernels.launch_counts[key] == before + 1
+
+
+@pytest.mark.gpu
+def test_interactive_slam_on_gpu_matches_cpu(cuda_device):
+    """40 house frames through the interactive engine in float64 on the
+    card and on the CPU, fed one RANSAC noise stream: the same keyframes,
+    edges, landmarks and window LM iterations, poses within 1e-6 m."""
+    import dataclasses
+
+    import numpy as np
+
+    from slslam_tpu_torch import bench
+    from slslam_tpu_torch.config import SlamConfig
+    from slslam_tpu_torch.engine import Slam
+    from slslam_tpu_torch.ops.ransac import gumbel_noise
+
+    cfg = dataclasses.replace(SlamConfig(), compute_dtype="float64")
+    frames, _ = bench.workload(cfg, 40, 4)
+
+    def hook(i, H, Nb):
+        g = torch.Generator().manual_seed(900 + i)
+        return gumbel_noise(g, (H, Nb), torch.float64, "cpu")
+
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        s = Slam(cfg, device=dev, gumbel_hook=hook)
+        kf = [i for i, fr in enumerate(frames) if s.process_frame(fr, i)]
+        runs.append((s, kf))
+    (g, kg), (c, kc) = runs
+    assert kg == kc and len(kg) >= 3
+    assert g.state.edge_set == c.state.edge_set
+    assert sorted(g.state.lms) == sorted(c.state.lms)
+    assert g.sum_num_iteration == c.sum_num_iteration
+    for a, b in zip(g.trajectory(), c.trajectory(), strict=True):
+        np.testing.assert_allclose(a.t, b.t, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(a.R, b.R, rtol=0, atol=1e-6)

@@ -2,7 +2,10 @@
 
 Both solve __graft_entry__._example_ba_problem in float64; outputs agree to
 1e-8 and BAStats.iterations are identical (the LM accept / converge
-decisions must follow the same path)."""
+decisions must follow the same path).  The window anchors and the staged
+solve, and the aid / asd evaluate by the chain rule around an orth
+evaluate (K2's on the card; its plain twin here), against JAX's jacfwd in
+those parameterizations."""
 
 import jax
 import jax.numpy as jnp
@@ -89,12 +92,14 @@ def test_tolerances_match_jax(dtype):
 
 @pytest.mark.parametrize("option", ["cam_anchor_sigmas", "prior_edges"])
 def test_unported_options_raise(option):
-    """cam_anchor_sigmas is not ported; prior_edges is, but not on the
-    pose-only path (JAX asserts the same) nor with malformed edges."""
+    """Both options are ported; they raise on malformed input:
+    cam_anchor_sigmas that are not positive, prior_edges on the pose-only
+    path (JAX asserts the same) or of the wrong shapes."""
     _, t = _problem(C=4, L=8, O=32)
     if option == "cam_anchor_sigmas":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tba.local_ba(*t, cam_anchor_sigmas=(0.1, 0.1))
+        with pytest.raises(ValueError, match="positive"):
+            tba.local_ba(*t, cam_anchor_sigmas=(0.1, 0.0))
+        tba.local_ba(*t, max_iters=1, cam_anchor_sigmas=(0.1, 0.1))
         return
     edges = (np.array([0]), np.array([1]), np.zeros((1, 6)),
              np.ones((1, 2)))
@@ -172,3 +177,118 @@ def test_local_ba_prior_edges_matches_jax(max_iters):
     # the strong chain priors hold: without them the solve lands elsewhere
     cu, _, _ = tba.local_ba(*t, robust=True, max_iters=max_iters)
     assert float(torch.max(torch.abs(cu - ct))) > 1e-6
+
+
+# The window anchors on the example problem, whose observations are random:
+# at 10 LM iterations a 1e-15 relative change of the observations moves the
+# anchored solve's lines by 7-9e-6 (the port against itself), so the
+# anchored solves are held at 4 iterations, where that witness is 5e-11.
+@pytest.mark.parametrize("anchor", [None, (0.01, 0.05)])
+@pytest.mark.parametrize("pose_only", [False, True])
+def test_local_ba_anchors_match_jax(anchor, pose_only):
+    j, t = _problem()
+    ja = None if anchor is None else tuple(jnp.asarray(x) for x in anchor)
+    cj, lj, sj = jba.local_ba(*j, robust=True, max_iters=4,
+                              pose_only=pose_only, cam_anchor_sigmas=ja)
+    ct, lt, st = tba.local_ba(*t, robust=True, max_iters=4,
+                              pose_only=pose_only, cam_anchor_sigmas=anchor)
+    assert int(st.iterations) == int(sj.iterations)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), **TOL)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    np.testing.assert_allclose(float(st.final_cost), float(sj.final_cost),
+                               rtol=1e-8)
+    if anchor is not None:   # the anchors hold the cameras back
+        c0, _, _ = tba.local_ba(*t, robust=True, max_iters=4,
+                                pose_only=pose_only)
+        assert float(torch.max(torch.abs(c0 - ct))) > 1e-9
+
+
+@pytest.mark.parametrize("anchor", [None, (0.01, 0.05)])
+def test_staged_local_ba_matches_jax(anchor):
+    """lines-GN on the free lines, then the window solve (schur_ba.py:
+    661-682), with and without window anchors, 4 LM iterations: identical
+    iterations, cameras within 1e-8, lines within 1e-8 of the largest line
+    parameter (lines-GN alone parts from JAX by 2.3e-7 on parameters up to
+    112 on this problem, within test_lines_gn_matches_jax's rtol)."""
+    j, t = _problem()
+    ja = None if anchor is None else tuple(jnp.asarray(x) for x in anchor)
+    cj, lj, sj = jba.staged_local_ba(*j, robust=True, max_iters=4,
+                                     gn_iters=4, cam_anchor_sigmas=ja)
+    ct, lt, st = tba.staged_local_ba(*t, robust=True, max_iters=4,
+                                     gn_iters=4, cam_anchor_sigmas=anchor)
+    assert int(st.iterations) == int(sj.iterations) > 1
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), **TOL)
+    lj = np.asarray(lj)
+    np.testing.assert_allclose(lt.numpy(), lj, rtol=0,
+                               atol=1e-8 * np.max(np.abs(lj)))
+    np.testing.assert_allclose(float(st.initial_cost),
+                               float(sj.initial_cost), rtol=1e-10)
+
+
+def _problem_in(line_param):
+    """The example problem with its lines re-encoded in ``line_param``."""
+    from slslam_tpu import geometry as jgeo
+    j, t = _problem()
+    enc = {"aid": jgeo.av_to_aid, "asd": jgeo.av_to_asd}[line_param]
+    lp = enc(jgeo.orth_to_av(j[1]))
+    j = (j[0], lp) + tuple(j[2:])
+    t = [t[0], torch.as_tensor(np.array(lp))] + t[2:]
+    return j, t
+
+
+def _chain_twin(*a):
+    """The orth twin as the chain rule's inner evaluate (the card runs K2
+    there)."""
+    from slslam_tpu_torch.ops.kernels import fused_eval_twin
+    return fused_eval_twin(*a[:-1])
+
+
+@pytest.mark.parametrize("line_param", ["aid", "asd"])
+def test_chain_rule_evaluate_matches_jax(line_param):
+    """Cost and every block of the window evaluate, aid / asd by the chain
+    rule (M = d orth / d p per line) against JAX's jacfwd in aid / asd:
+    within 1e-9 relative."""
+    from slslam_tpu_torch.ops.kernels import fused_eval_chart
+    j, t = _problem_in(line_param)
+    cam, line, obs, oc, ol, ov, cfree, lfree, bl, hd = j
+    wv, cf, lf = (x.astype(jnp.float64) for x in (ov, cfree, lfree))
+    want = jax.jit(lambda *a: jba._eval_system(*a, True,
+                                               line_param=line_param))(
+        cam, line, obs, oc, ol, wv, cf, lf, bl, hd)
+    cam, line, obs, oc, ol, ov, cfree, lfree, bl, hd = t
+    got = fused_eval_chart(cam, line, obs, oc.to(torch.int32),
+                           ol.to(torch.int32), ov.double(), cfree.double(),
+                           lfree.double(), bl, hd, robust=True,
+                           line_param=line_param, variant="full",
+                           evaluate=_chain_twin)
+    for name, a, b in zip(("cost", "Hcc", "Hll", "gc", "gl", "W"), want,
+                          got):
+        a = np.asarray(a)
+        err = np.max(np.abs(b.numpy() - a)) / max(np.max(np.abs(a)), 1e-300)
+        assert err <= 1e-9, (name, err)
+
+
+@pytest.mark.parametrize("line_param", ["aid", "asd"])
+def test_chain_rule_local_ba_matches_jax(line_param, monkeypatch):
+    """The window solve with aid / asd lines, every evaluate through the
+    chain rule as on the card, against JAX's local_ba in aid / asd:
+    identical LM iterations, outputs within 1e-8."""
+    from slslam_tpu_torch.ops import kernels
+    calls = []
+
+    def routed(*a, line_param="orth", variant="full", plan=None, **k):
+        calls.append(variant)
+        return kernels.fused_eval_chart(*a, line_param=line_param,
+                                        variant=variant, plan=plan,
+                                        evaluate=_chain_twin, **k)
+
+    monkeypatch.setattr(tba, "fused_eval", routed)
+    j, t = _problem_in(line_param)
+    cj, lj, sj = jba.local_ba(*j, robust=True, max_iters=10,
+                              line_param=line_param)
+    ct, lt, st = tba.local_ba(*t, robust=True, max_iters=10,
+                              line_param=line_param)
+    assert len(calls) == int(st.iterations) > 1
+    assert int(st.iterations) == int(sj.iterations)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), **TOL)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
