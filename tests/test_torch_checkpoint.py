@@ -1,6 +1,6 @@
 """Checkpoint / resume of the port's interactive engine, and its CLI.
 
-A JAX checkpoint after frame 14 of a house run (every frame a keyframe,
+A JAX checkpoint after frame 20 of a house run (every frame a keyframe,
 float64), resumed by the port with the JAX engine's RANSAC noise continued
 from the file's rng_key, equals the JAX engine's straight run to 1e-8 m.
 The port's own save / load round trip resumes bit for bit with its
@@ -31,7 +31,7 @@ from test_torch_slam import JaxGumbel, _frames
 
 torch.set_num_threads(1)
 
-NF, CUT = 22, 14
+NF, CUT = 25, 20
 GATES = dict(compute_dtype="float64", kf_rot_thr=1e-9, kf_tr_thr=1e-9)
 
 
@@ -68,23 +68,24 @@ def test_jax_checkpoint_resumed_by_the_port(tmp_path):
 
 
 def test_port_round_trip_is_bit_for_bit(tmp_path):
-    """Save after frame CUT, go on; a fresh engine loads the file and runs
+    """Save after frame 10, go on; a fresh engine loads the file and runs
     the same frames: the same trajectory, bit for bit, with the
     torch.Generator's stream restored (no hook)."""
-    frames = _frames(NF)
+    nf, cut = 16, 10
+    frames = _frames(nf)
     cfg = dataclasses.replace(PortConfig(), **GATES)
     a = Slam(cfg, device="cpu")
     path = str(tmp_path / "port.npz")
-    for i in range(NF):
+    for i in range(nf):
         a.process_frame(frames[i], i)
-        if i == CUT:
+        if i == cut:
             checkpoint.save_checkpoint(a, path)
     b = Slam(cfg, device="cpu")
     b.generator.manual_seed(12345)       # the file must restore the stream
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         checkpoint.load_checkpoint(b, path)
-    for i in range(CUT + 1, NF):
+    for i in range(cut + 1, nf):
         b.process_frame(frames[i], i)
     assert _poses_equal(b.trajectory(), a.trajectory())
     assert b.sum_num_iteration == a.sum_num_iteration
