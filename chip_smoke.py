@@ -69,11 +69,35 @@ Phases, each printing one JSON line:
    village replay's window, the span refits, group fits and joint
    polishes, the priors' and the PGO's block sums, the merged refine):
    against its twin in float32 and float64 at the tolerances of phases 1
-   and 2, and timed in float32 as they time the house shapes.
+   and 2, and timed in float32 as they time the house shapes;
+7. the interactive engine (``Slam``): (a) 400 house frames in f32 at the
+   reference gates, (b) the interactive bench, (c) f64 parity with the
+   CPU (orth; aid with window anchors), (d) interactive loop closure on
+   the village, (e) a checkpoint resumed bit for bit; then every kernel at
+   every shape phase 7 launched it at (role "interactive");
+8. the image front-end: (a) on the first rendered house frames, the
+   gradient maps on the card against the CPU (magnitude within FE_MAG_TOL,
+   the angle within FE_ANGLE_TOL where it is read), the descriptors on
+   identical inputs (FE_DESC_TOL), the host stages on the card's maps
+   giving the card's segments, the native grower; (b) the front-end bench
+   workload (tools/torch_frontend_bench.py: 60 frames -> matcher ->
+   BatchSlam -> refine, f32): more than 20 tracks a frame, refined ATE
+   below 0.35 m (tests/test_frontend.py's gate), the stage split and the
+   device's busy share over the front-end loop; (c) ``cli track`` over 40
+   rendered frames written as PNGs, through ``Slam`` at ``SlamConfig()``'s
+   gates in f32 (the main path of the slice): keyframe ATE below 0.35 m,
+   K2 ``full`` launches == window LM iterations, ``lines`` == 4 x window
+   solves, ``cams`` within the VO's cap, K1 launched, no torch.func
+   Jacobian on CUDA tensors, the native walker; (d) the interactive PGO
+   case of tests/test_torch_slam_pgo.py in f64: every pose-graph solve of
+   the CPU's run repeated from its state on the card and on the CPU
+   (within 1e-9 m), and the whole run on the card beside the CPU's; then
+   every kernel at every shape (b) and (c) launched it at (role
+   "frontend").
 
-The launch counts of the kernels' record are those of the three
-main-path runs, phase 4's replay, phase 5's refine and phase 6's loop
-closure run, each counted from zero (the split is under
+The launch counts of the kernels' record are those of the main-path runs
+(phase 4's replay, phase 5's refine, phase 6's loop closure run, phase 7
+(a) and phase 8 (b) and (c)), each counted from zero (the split is under
 ``launches_by_path``); each timed shape carries its own launches in
 those runs (``launches_at_shape``; role "lc": the loop-closure run's).
 Then a line with the card's name
@@ -104,6 +128,17 @@ PARITY_FRAMES = 40
 # the JAX package's keyframe ATE on phase 7 (a)'s run, in float64 on the CPU
 # (tools/jax_interactive_reference.py)
 JAX_INTERACTIVE_ATE_M = 0.0018133473159282338
+FRONTEND_FRAMES = 60
+FE_CHECK_FRAMES = 5
+TRACK_FRAMES = 40
+TRACK_STRIDE = 3
+PGO_FRAMES = 80
+# the front-end's device stages, card against CPU (phase 8 (a)): magnitude
+# (absolute, gray levels per pixel), level-line angle where the magnitude
+# reaches the detector's threshold, normalized descriptor
+FE_MAG_TOL = 1e-4
+FE_ANGLE_TOL = 1e-5
+FE_DESC_TOL = 1e-6
 
 
 def log(obj):
@@ -1041,6 +1076,295 @@ def phase7(dev):
     return launches, shapes7
 
 
+def _load_frontend_bench():
+    """tools/torch_frontend_bench.py as a module (tools/ is no package)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_frontend_bench.py")
+    spec = importlib.util.spec_from_file_location("torch_frontend_bench",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _angle_gap(a, b):
+    import numpy as np
+    return np.abs(np.angle(np.exp(1j * (a.astype(np.float64) - b))))
+
+
+def phase8a(dev, images):
+    """(a) the front-end's device stages on the card against the same
+    functions on the CPU, on the first rendered house frames."""
+    import numpy as np
+    from slslam_tpu_torch.frontend.descriptor import describe
+    from slslam_tpu_torch.frontend.detector import LineSegmentDetector
+    det_gpu = LineSegmentDetector(device=dev)
+    det_cpu = LineSegmentDetector(device="cpu")
+    worst = dict.fromkeys(("mag", "angle", "describe"), 0.0)
+    seg_gap, counts, same_host = 0.0, [], True
+    for pair in images:
+        for img in pair:
+            segs, mag, ang = det_gpu.detect_with_gradients(img)
+            segs_c, mag_c, ang_c = det_cpu.detect_with_gradients(img)
+            m, a = mag.cpu().numpy(), ang.cpu().numpy()
+            mc, ac = mag_c.numpy(), ang_c.numpy()
+            read = mc >= det_cpu.mag_threshold
+            worst["mag"] = max(worst["mag"], float(np.abs(m - mc).max()))
+            worst["angle"] = max(worst["angle"],
+                                 float(_angle_gap(a, ac)[read].max()))
+            # the descriptor on identical inputs (the CPU's maps, the CPU's
+            # segments) on both devices
+            d_gpu = describe(mag_c.to(dev), ang_c.to(dev), segs_c)
+            d_cpu = describe(mag_c, ang_c, segs_c)
+            worst["describe"] = max(worst["describe"],
+                                    float(np.abs(d_gpu - d_cpu).max()))
+            # the host stages fed the card's maps give the card's segments
+            same_host &= bool(np.array_equal(det_cpu.segments(m, a), segs))
+            counts.append([len(segs), len(segs_c)])
+            if len(segs) == len(segs_c):
+                seg_gap = max(seg_gap, float(np.abs(segs - segs_c).max()))
+    out = {"phase": 8, "run": "(a) front-end stages, card vs CPU, "
+           f"{len(images)} house frames", "max_abs_err": worst,
+           "tolerance": {"mag": FE_MAG_TOL, "angle_rad": FE_ANGLE_TOL,
+                         "describe": FE_DESC_TOL},
+           "segments_card_cpu": counts, "max_endpoint_gap_px": seg_gap,
+           "host_stages_on_card_maps_identical": same_host,
+           "grower": det_gpu.grower}
+    log(out)
+    checks = {"mag": worst["mag"] <= FE_MAG_TOL,
+              "angle": worst["angle"] <= FE_ANGLE_TOL,
+              "describe": worst["describe"] <= FE_DESC_TOL,
+              "host stages identical on the card's maps": same_host,
+              "native grower": det_gpu.grower == "native"}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 8 (a) failed: {failed}")
+
+
+def phase8(dev):
+    """The image front-end (P11): (a) its device stages card vs CPU, (b)
+    the front-end bench workload (tools/torch_frontend_bench.py: 60
+    rendered frames -> matcher -> BatchSlam -> refine, f32), (c) ``cli
+    track`` over rendered PNGs through ``Slam`` at ``SlamConfig()``'s gates
+    in f32 (the main path, counted), (d) the interactive PGO case, card vs
+    CPU in f64.  Returns the launches of (c) and of (b) and their launch
+    shapes."""
+    import dataclasses
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from PIL import Image
+    from slslam_tpu_torch import bench, cli
+    from slslam_tpu_torch.config import SlamConfig
+    from slslam_tpu_torch import engine
+    from slslam_tpu_torch.engine import slam as slam_mod
+    from slslam_tpu_torch.ops import kernels, residuals
+    fb = _load_frontend_bench()
+    t_phase = time.perf_counter()
+    shapes8 = {}
+
+    # (b) first: its rendered frames also feed (a)
+    kernels.reset_launch_counts()
+    rec_b, _, _, _ = fb.run(FRONTEND_FRAMES, 1, dev, "float32", profile=True)
+    launches_b = dict(kernels.launch_counts)
+    _merge_shapes(shapes8, kernels.launch_shapes)
+    cfg_b = fb.frontend_config("float32")
+    images, _ = fb.render(cfg_b, FE_CHECK_FRAMES)
+    phase8a(dev, images)
+    log({"phase": 8, "run": f"(b) front-end bench, {FRONTEND_FRAMES} "
+         "house frames, float32", **{k: v for k, v in rec_b.items()
+                                     if k != "profile"},
+         "device_busy": {k: rec_b["profile"][k] for k in (
+             "wall_s", "profiled_wall_s", "device_busy_s", "device_ops",
+             "top_device")},
+         "launches": launches_b})
+    checks = {"tracks per frame > 20": rec_b["mean_tracks_per_frame"] > 20,
+              "refined ATE < 0.35 m": rec_b["ate_refined_m"] < 0.35,
+              "every frame a keyframe":
+                  rec_b["keyframes"] == FRONTEND_FRAMES,
+              "native grower": rec_b["grower"] == "native"}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 8 (b) failed: {failed}")
+
+    # (c) cli track over rendered PNGs, the reference gates, float32
+    cfg = dataclasses.replace(SlamConfig(), compute_dtype="float32")
+    imgs_c, poses_c = fb.render(cfg, TRACK_FRAMES, TRACK_STRIDE)
+    with tempfile.TemporaryDirectory() as tmp:
+        for side in ("left", "right"):
+            os.makedirs(os.path.join(tmp, side))
+        for i, pair in enumerate(imgs_c):
+            for side, img in zip(("left", "right"), pair):
+                Image.fromarray(np.clip(np.rint(img), 0, 255).astype(
+                    np.uint8)).save(os.path.join(tmp, side, f"{i:04d}.png"))
+        calls = dict.fromkeys(JAC_HELPERS + ("staged_local_ba",), 0)
+        made = []
+
+        def keep(*a, _slam=engine.Slam, **k):
+            made.append(_slam(*a, **k))
+            return made[-1]
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(counting(
+                (kernels, residuals), JAC_HELPERS, calls,
+                when=lambda cw, *a, **k: cw.device.type == "cuda"))
+            stack.enter_context(counting((slam_mod,), ("staged_local_ba",),
+                                         calls))
+            saved, engine.Slam = engine.Slam, keep
+            kernels.reset_launch_counts()
+            try:
+                t0 = time.perf_counter()
+                stats = cli.main(["track", "--left-dir",
+                                  os.path.join(tmp, "left"), "--right-dir",
+                                  os.path.join(tmp, "right"), "--device",
+                                  str(dev), "--dtype", "float32", "--out",
+                                  os.path.join(tmp, "out")])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                engine.Slam = saved
+            launches = dict(kernels.launch_counts)
+            _merge_shapes(shapes8, kernels.launch_shapes)
+    slam, = made
+    kf = stats["keyframe_frames"]
+    traj = slam.trajectory()
+    ate_c = bench.ate(traj, [poses_c[i] for i in kf])
+    by_variant = variant_launches(launches)
+    jac_cuda = sum(calls[k] for k in JAC_HELPERS)
+    log({"phase": 8, "run": f"(c) cli track, {TRACK_FRAMES} rendered "
+         f"house frames (stride {TRACK_STRIDE}), float32, reference gates",
+         "kf": len(kf), "keyframe_frames": kf, "ate_kf_m": ate_c,
+         "wall_s": wall, "frames_per_s": TRACK_FRAMES / wall,
+         "window_solves": calls["staged_local_ba"],
+         "window_lm_iterations": slam.sum_num_iteration,
+         "vo_calls": slam.vo_calls, "jacobian_helper_calls_cuda": jac_cuda,
+         "post_processing": {k: stats[k] for k in (
+             "num_keyframes", "num_landmarks", "avg_num_iterations",
+             "proc_pose_estimation_mean_s", "proc_local_ba_mean_s",
+             "embedding_walker")}, "launches": launches})
+    checks = {
+        ">= 3 keyframes": len(kf) >= 3,
+        "finite poses": all(np.all(np.isfinite(T.t))
+                            and np.all(np.isfinite(T.R)) for T in traj),
+        "keyframe ATE < 0.35 m": ate_c < 0.35,
+        "full launches == window LM iterations":
+            by_variant["full"] == slam.sum_num_iteration > 0,
+        "lines launches == lines_gn_iters x window solves":
+            by_variant["lines"]
+            == cfg.lines_gn_iters * calls["staged_local_ba"] > 0,
+        "0 < cams launches <= moba_max_iter x VO calls":
+            0 < by_variant["cams"] <= cfg.moba_max_iter * slam.vo_calls,
+        "no lm launch": by_variant["lm"] == 0,
+        "K1 launched": launches["segment_sum"] > 0,
+        "no torch.func Jacobians on CUDA": jac_cuda == 0,
+        "native embedding walker": stats["embedding_walker"] == "native",
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 8 (c) failed: {failed}")
+
+    # (d) the interactive PGO case, card vs CPU in float64
+    pgo = phase8d(dev)
+    log({"phase": 8, "run": "(d) interactive PGO, village 80 frames, "
+         "float64, card vs CPU", **pgo,
+         "phase_8_runs_s": time.perf_counter() - t_phase})
+    return launches, launches_b, shapes8
+
+
+def phase8d(dev):
+    """tests/test_torch_slam_pgo.py's run (the small village, 80 frames,
+    consistency thresholds 2 cm / 0.01 rad) in float64.  The CPU's run
+    keeps the engine as it stands before each pose-graph solve; each such
+    solve then runs from that state on the card and on the CPU: keyframe
+    poses within 1e-9 m.  The whole run on the card beside the CPU's (one
+    RANSAC noise stream) must run the PGO as often; its gap is recorded,
+    to be read against the CPU's own band under 1e-15 input changes
+    (tools/jax_frontend_reference.py pgo): this run's window solves
+    amplify rounding (tests/test_torch_slam_lc.py)."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from slslam_tpu_torch import bench
+    from slslam_tpu_torch.config import SlamConfig
+    from slslam_tpu_torch.engine import Slam
+    from slslam_tpu_torch.loopclosure import (PlaceRecognizer, VocTree,
+                                              VocTreeParams)
+    from slslam_tpu_torch.sim import SegmentDescriptorSource
+    cfg = dataclasses.replace(
+        SlamConfig(), compute_dtype="float64", ransac_num_hypotheses=64,
+        corr_buckets=(64, 128), obs_buckets=(512, 1024, 2048),
+        line_buckets=(256, 512), pgo_consistency_tr_thr=0.02,
+        pgo_consistency_rot_thr=0.01)
+    frames, _, src, assigner, vocab, _ = bench.lc_workload(
+        cfg, PGO_FRAMES, 3.2 * PGO_FRAMES / 120, orbit_radius=3.5)
+    params = VocTreeParams(non_consider_recent=8, consider_seq_length=3,
+                           threshold=0.25, num_avg_words=30)
+
+    def make(d):
+        s = Slam(cfg, device=d, gumbel_hook=_cpu_gumbel())
+        s.place_recognizer = PlaceRecognizer(VocTree(vocab, params, device=d),
+                                             min_matches=8,
+                                             min_similarity=0.8)
+        s.descriptor_source = SegmentDescriptorSource(
+            assigner, len(src.base), noise=0.01, seed=7)
+        return s
+
+    # the CPU's run and its states before each solve
+    cpu = make("cpu")
+    before = []
+
+    def keep_state(_orig=cpu.pose_optimization):
+        before.append(copy.deepcopy(cpu))
+        _orig()
+
+    cpu.pose_optimization = keep_state
+    t0 = time.perf_counter()
+    k_cpu = [i for i in range(len(frames))
+             if cpu.process_frame(frames[i], i)]
+    t_cpu = time.perf_counter() - t0
+    gpu = make(dev)
+    t0 = time.perf_counter()
+    k_gpu = [i for i in range(len(frames))
+             if gpu.process_frame(frames[i], i)]
+    t_gpu = time.perf_counter() - t0
+
+    solve_gaps = []
+    for snap in before:
+        poses = []
+        for d in (dev, "cpu"):
+            e = copy.deepcopy(snap)
+            e.device = torch.device(d)
+            Slam.pose_optimization(e)
+            poses.append(np.stack([e.state.kfs[i].T.t
+                                   for i in sorted(e.state.kfs)]))
+        solve_gaps.append(float(np.abs(poses[0] - poses[1]).max()))
+
+    out = {"kf": len(k_cpu), "lc_cnt": cpu.lc_cnt,
+           "pgo_runs_cuda": gpu.pgo_runs, "pgo_runs_cpu": cpu.pgo_runs,
+           "pgo_solve_gap_card_cpu_m": solve_gaps,
+           "same_keyframes": k_gpu == k_cpu,
+           "same_edges": gpu.state.edge_set == cpu.state.edge_set,
+           "lm_iterations_cuda": gpu.sum_num_iteration,
+           "lm_iterations_cpu": cpu.sum_num_iteration,
+           "max_traj_diff_m": max(
+               float(np.linalg.norm(x.t - y.t))
+               for x, y in zip(gpu.trajectory(), cpu.trajectory())),
+           "wall_cuda_s": t_gpu, "wall_cpu_s": t_cpu}
+    checks = {"the PGO ran": cpu.pgo_runs > 0 and gpu.pgo_runs > 0,
+              "same PGO count": gpu.pgo_runs == cpu.pgo_runs,
+              "every solve from one state within 1e-9 m":
+                  len(solve_gaps) == cpu.pgo_runs
+                  and max(solve_gaps) <= 1e-9}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 8 (d) failed: {failed}; {out}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1080,6 +1404,14 @@ def main():
     shape_kernels(dev, rec, {k: sum(v for (n, _), v in shapes7.items()
                                     if n == k) for k in launches7},
                   shapes7, "interactive", 7)
+    launches8, launches8b, shapes8 = phase8(dev)
+    for name in launches8:
+        rec[name]["launches"] += launches8[name] + launches8b[name]
+        rec[name]["launches_by_path"]["track"] = launches8[name]
+        rec[name]["launches_by_path"]["frontend_bench"] = launches8b[name]
+    shape_kernels(dev, rec, {k: sum(v for (n, _), v in shapes8.items()
+                                    if n == k) for k in launches8},
+                  shapes8, "frontend", 8)
     if "jax" in sys.modules or any(m == "slslam_tpu" or
                                    m.startswith("slslam_tpu.")
                                    for m in sys.modules):

@@ -1,10 +1,13 @@
-"""slslam_tpu_torch: the batch replay engine, global refine and deferred
-loop closure of slslam_tpu in PyTorch + CUDA.
+"""slslam_tpu_torch: the batch replay engine, global refine, deferred loop
+closure, interactive engine and image front-end of slslam_tpu in PyTorch +
+CUDA.
 
 A port of the device-resident batch engine (``slslam_tpu.engine.batch``),
-of the post-replay global refine (``slslam_tpu.engine.refine``) and of
+of the post-replay global refine (``slslam_tpu.engine.refine``), of
 loop-closure mode (``slslam_tpu.engine.batch_lc``, ``loopclosure``,
-``ops.pose_graph``) to PyTorch, with the BA evaluates and the index
+``ops.pose_graph``), of the interactive engine (``engine.slam``) and of
+the image front-end (``frontend``: detector, descriptor, matcher) to
+PyTorch, with the BA evaluates and the index
 reductions written by hand in CUDA C++ for Hopper (``csrc/``, bound through
 ctypes in ``ops/kernels.py``), and the bench entry ``python3 -m
 slslam_tpu_torch.bench``.  The JAX package stays the reference; this

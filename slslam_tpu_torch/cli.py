@@ -3,23 +3,31 @@
     python -m slslam_tpu_torch.cli sim --frames 120 --noise-px 0.5 \\
         --out /tmp/run
     python -m slslam_tpu_torch.cli run --obs-dir data/it3f/line_tracking_result
+    python -m slslam_tpu_torch.cli track --left-dir seq/left --right-dir \\
+        seq/right [--vocab vocab.bin] --out /tmp/run
 
-The ``sim`` and ``run`` commands of ``slslam_tpu.cli`` with their flags
-(the reference's --ba-window-size, --max-num-iter, --rseed, --robust,
+The ``sim``, ``run`` and ``track`` commands of ``slslam_tpu.cli`` with their
+flags (the reference's --ba-window-size, --max-num-iter, --rseed, --robust,
 --stopfrm; main.cpp:22-27).  ``sim`` renders the house world along the wave
 trajectory (the port's copy of the simulation, render seed = --rseed);
 ``run`` replays the reference's line-track files (%04d.txt in pixel
-coordinates) from --obs-dir.  ``--engine interactive`` (the default, as in
-the JAX CLI) drives the per-frame ``Slam``: it writes ``trajectory.txt``,
-``landmarks.txt``, ``stats.json`` with ``post_processing()``'s keys (and
-``sim``'s ``gt_trajectory.txt`` and ``ate_m``), and with
-``--checkpoint-every N`` a resumable ``checkpoint.npz`` every N keyframes.
-``--engine batch`` replays through ``BatchSlam``; ``--refine`` then follows
-with the global bundle adjustment (``refine_*`` stats, ``refine_ate_m``,
-``trajectory_refined.txt``) and is ignored, with a warning, on the
-interactive engine.  ``--device`` defaults to ``cuda``; ``--device cpu``
-runs the plain twins.  The JAX CLI's plots, viewers, live views, mesh
-flags and ``track`` command are not ported.
+coordinates) from --obs-dir; ``track`` runs the image front-end (detector,
+descriptor, stereo/temporal matcher) over rectified stereo images
+%04d.(png|jpg|jpeg|pgm|bmp) under --left-dir / --right-dir from --start,
+and with --vocab the matcher's descriptors feed live place recognition (a
+missing vocabulary file is trained from the sequence's first descriptors
+and saved).  ``--engine interactive`` (the default, as in the JAX CLI)
+drives the per-frame ``Slam``: it writes ``trajectory.txt``,
+``landmarks.txt``, ``stats.json`` with ``post_processing()``'s keys and the
+keyframes' frame ids (and ``sim``'s ``gt_trajectory.txt`` and ``ate_m``),
+and with ``--checkpoint-every N`` a resumable ``checkpoint.npz`` every N
+keyframes.  ``--engine batch`` replays through ``BatchSlam``; ``--refine``
+then follows with the global bundle adjustment (``refine_*`` stats,
+``refine_ate_m``, ``trajectory_refined.txt``) and is ignored, with a
+warning, on the interactive engine.  ``--device`` defaults to ``cuda``;
+``--device cpu`` runs the plain twins.  The JAX CLI's plots, viewers and
+live views (``--live-dir``, ``--viz``, ``view``: P13) and its mesh flags
+(P12) are not ported.
 """
 
 from __future__ import annotations
@@ -113,9 +121,11 @@ def _batch(args, cfg, frames, poses_gt=None, frame_ids=None):
     return stats
 
 
-def _interactive(args, cfg, frames, poses_gt=None, normalized=True):
+def _interactive(args, cfg, frames, poses_gt=None, normalized=True,
+                 setup=None):
     """The per-frame engine over (frame_id, obs) pairs (slslam_tpu/cli.py
-    cmd_sim / cmd_run / _finish)."""
+    cmd_sim / cmd_run / cmd_track / _finish); ``setup(slam)`` wires a
+    place recognizer in before the first frame."""
     from .checkpoint import save_checkpoint
     from .engine import Slam
     from .evalio.traj import ate_position_error
@@ -125,6 +135,8 @@ def _interactive(args, cfg, frames, poses_gt=None, normalized=True):
         print("warning: --refine only applies to --engine batch; ignored "
               "on the interactive engine", file=sys.stderr)
     slam = Slam(cfg, device=args.device)
+    if setup is not None:
+        setup(slam)
     kf_frames = []
     t0 = time.perf_counter()
     n = 0
@@ -147,6 +159,7 @@ def _interactive(args, cfg, frames, poses_gt=None, normalized=True):
     stats = slam.post_processing()
     stats["device"] = str(slam.device)
     stats["dtype"] = str(slam.dtype)
+    stats["keyframe_frames"] = kf_frames
     gt_rows = None
     if poses_gt is not None and kf_frames:
         gt_rows = _gt_rows(poses_gt, kf_frames)
@@ -196,6 +209,99 @@ def cmd_run(args):
     return _interactive(args, cfg, loader, normalized=False)
 
 
+IMAGE_EXTS = ("png", "jpg", "jpeg", "pgm", "bmp")
+
+
+def _stereo_frames(args):
+    """(frame id, left path, right path) from --start while both images
+    exist (slslam_tpu/cli.py:346-362)."""
+    i = args.start
+    while i <= args.stopfrm:
+        hits = []
+        for d in (args.left_dir, args.right_dir):
+            found = None
+            for ext in IMAGE_EXTS:
+                p = os.path.join(d, f"{i:04d}.{ext}")
+                if os.path.exists(p):
+                    found = p
+                    break
+            hits.append(found)
+        if None in hits:
+            return
+        yield i, hits[0], hits[1]
+        i += 1
+
+
+def _vocab_params(preset):
+    from .loopclosure import VocTreeParams
+    return {"indoor": VocTreeParams.indoor, "outdoor": VocTreeParams.outdoor,
+            "outdoor-long": VocTreeParams.outdoor_long_loop}[preset]()
+
+
+def _train_vocabulary(args, cfg, load):
+    """A vocabulary from the sequence's own descriptors (slslam_tpu/cli.py:
+    377-392): the tracks alive after each frame until the bank holds more
+    than 200 descriptors, written to --vocab."""
+    from .frontend.matcher import StereoLineMatcher
+    from .loopclosure import VocTree, build_vocabulary
+    print(f"training vocabulary -> {args.vocab}", file=sys.stderr)
+    pre = StereoLineMatcher(cfg.camera, device=args.device)
+    bank = []
+    for frame_id, pl_, pr_ in _stereo_frames(args):
+        if len(bank) > 200:
+            break
+        pre.process(frame_id, *load(pl_, pr_))
+        bank.extend(t.desc for t in pre.tracks.values())
+    pre.close()
+    vocab = build_vocabulary(np.asarray(bank, np.float32))
+    VocTree(vocab, _vocab_params(args.vocab_preset),
+            device=args.device).save(args.vocab)
+
+
+def cmd_track(args):
+    """The image front-end into the engine (slslam_tpu/cli.py:337-423):
+    detector -> descriptors -> stereo/temporal matcher -> ``Slam``, with
+    live place recognition over the matcher's descriptors when --vocab is
+    given."""
+    from PIL import Image
+
+    from .frontend.matcher import StereoLineMatcher
+
+    if args.live_dir:
+        raise SystemExit("--live-dir needs the tracking views of viz.py, "
+                         "which the port does not have yet (P13)")
+    cfg = _config(args)
+    matcher = StereoLineMatcher(cfg.camera, device=args.device)
+
+    def load(pl_, pr_):
+        return tuple(np.asarray(Image.open(p).convert("L"), np.float32)
+                     for p in (pl_, pr_))
+
+    def frames():
+        for frame_id, pl_, pr_ in _stereo_frames(args):
+            yield frame_id, matcher.process(frame_id, *load(pl_, pr_))
+
+    if args.engine == "batch":
+        print("warning: track runs the interactive engine, as the JAX CLI's "
+              "does; --engine batch ignored", file=sys.stderr)
+    try:
+        slam_setup = None
+        if args.vocab:
+            from .loopclosure import PlaceRecognizer, VocTree
+            if not os.path.exists(args.vocab):
+                _train_vocabulary(args, cfg, load)
+            tree = VocTree.load(args.vocab, _vocab_params(args.vocab_preset),
+                                device=args.device)
+
+            def slam_setup(slam):
+                slam.place_recognizer = PlaceRecognizer(tree)
+                slam.descriptor_source = matcher.descriptors
+        return _interactive(args, cfg, frames(), normalized=False,
+                            setup=slam_setup)
+    finally:
+        matcher.close()
+
+
 def _add_common(p):
     p.add_argument("--engine", choices=("interactive", "batch"),
                    default="interactive",
@@ -233,6 +339,23 @@ def main(argv=None):
     p.add_argument("--obs-dir", required=True)
     _add_common(p)
     p.set_defaults(fn=cmd_run)
+    p = sub.add_parser("track", help="the image front-end on rectified "
+                       "stereo images, into the engine")
+    p.add_argument("--left-dir", required=True)
+    p.add_argument("--right-dir", required=True)
+    p.add_argument("--start", type=int, default=0)
+    p.add_argument("--vocab", default=None,
+                   help="voctree vocabulary file: live place recognition "
+                        "and loop closure; trained from the sequence if the "
+                        "file does not exist")
+    p.add_argument("--vocab-preset",
+                   choices=("indoor", "outdoor", "outdoor-long"),
+                   default="indoor",
+                   help="voctree parameter preset (voctree_bf.h:24-43)")
+    p.add_argument("--live-dir", default=None,
+                   help="not ported: the tracking views need viz.py (P13)")
+    _add_common(p)
+    p.set_defaults(fn=cmd_track)
     args = ap.parse_args(argv)
     return args.fn(args)
 

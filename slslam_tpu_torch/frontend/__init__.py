@@ -1,5 +1,6 @@
 """Front-end of the port: the reference's observation-file loader (a copy
-of slslam_tpu.frontend.io; the detector, matcher and descriptors are P11,
-not ported yet)."""
+of slslam_tpu.frontend.io) and the image front-end (detector, MSLD
+descriptor, stereo/temporal matcher; ports of slslam_tpu.frontend), which
+turns rectified stereo images into line tracks."""
 
 from .io import ObsFileLoader, parse_obs_file  # noqa: F401

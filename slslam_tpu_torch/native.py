@@ -1,7 +1,7 @@
 """ctypes bindings of the port to the repository's native runtime library.
 
-A copy of the ``metric_embedding`` and ``parse_obs_file`` bindings of
-``slslam_tpu/native.py`` (:144-158, :188-213) and of its build lock
+A copy of the ``parse_obs_file``, ``lsd_detect`` and ``metric_embedding``
+bindings of ``slslam_tpu/native.py`` (:144-213) and of its build lock
 (:25-77).  The library is compiled from the repository's
 ``native/slslam_native.cpp`` with ``g++`` at first use into
 ``build/native/`` beside the package (git-ignored), never into ``native/``:
@@ -10,8 +10,8 @@ anew.  Concurrent builders (test workers) serialize on an ``flock`` and
 swap the finished library in with an atomic rename.
 
 ``available()`` says whether the library loads; ``build_error`` holds why
-it did not.  Nothing here falls back: the callers choose their walker and
-report it (``engine/embedding.py``).
+it did not.  Nothing here falls back: the callers choose their walker or
+grower and report it (``engine/embedding.py``, ``frontend/detector.py``).
 """
 
 from __future__ import annotations
@@ -95,6 +95,11 @@ def _load():
     lib.slslam_metric_embedding.argtypes = [
         ctypes.c_int, ctypes.c_int, ip, ip, dp, ctypes.c_int, ip, dp,
         ctypes.POINTER(ctypes.c_ubyte), dp]
+    fp = ctypes.POINTER(ctypes.c_float)
+    f = ctypes.c_float
+    lib.slslam_lsd_detect.restype = ctypes.c_int
+    lib.slslam_lsd_detect.argtypes = [fp, fp, ctypes.c_int, ctypes.c_int,
+                                      f, f, f, f, dp, dp, ctypes.c_int]
     _lib = lib
     return _lib
 
@@ -118,6 +123,34 @@ def parse_obs_file(path: str, max_rows: int = 4096
     if n < 0:
         return None
     return {int(ids[k]): obs[k].copy() for k in range(n)}
+
+
+def lsd_detect(mag: np.ndarray, angle: np.ndarray, mag_threshold: float,
+               angle_tol: float, min_length: float, min_density: float,
+               max_segments: int = 4096
+               ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Native LSD-style region growing (``slslam_lsd_detect``,
+    native/slslam_native.cpp:166-286; the twin of
+    ``frontend.detector.LineSegmentDetector._grow_regions``).  Float32
+    (H, W) maps in; (segments (N, 4), gradient directions (N, 2)) out, or
+    None if the library is unavailable.  The call releases the GIL."""
+    lib = _load()
+    if lib is None:
+        return None
+    mag = np.ascontiguousarray(mag, np.float32)
+    angle = np.ascontiguousarray(angle, np.float32)
+    if mag.ndim != 2 or angle.shape != mag.shape:
+        raise ValueError(f"maps of shapes {mag.shape} and {angle.shape}")
+    H, W = mag.shape
+    segs = np.zeros((max_segments, 4), np.float64)
+    grads = np.zeros((max_segments, 2), np.float64)
+    fp = ctypes.POINTER(ctypes.c_float)
+    dp = ctypes.POINTER(ctypes.c_double)
+    n = lib.slslam_lsd_detect(
+        mag.ctypes.data_as(fp), angle.ctypes.data_as(fp), H, W,
+        mag_threshold, angle_tol, min_length, min_density,
+        segs.ctypes.data_as(dp), grads.ctypes.data_as(dp), max_segments)
+    return segs[:n].copy(), grads[:n].copy()
 
 
 def metric_embedding(n_kfs: int, edge_i: np.ndarray, edge_j: np.ndarray,

@@ -4,8 +4,10 @@ and the port's independence from the JAX package.
 slslam_tpu_torch keeps cited copies of what it needs from slslam_tpu.config,
 slslam_tpu.hostgeom, slslam_tpu.sim (house, wave, renderer, village,
 tracks), slslam_tpu.evalio (writers, traj), slslam_tpu.utils.stopwatch,
-slslam_tpu.engine.state, slslam_tpu.frontend.io, the native bindings of
-slslam_tpu.native, the numpy parts of
+slslam_tpu.engine.state, slslam_tpu.frontend.io, the numpy stages of
+slslam_tpu.frontend.detector and .matcher, slslam_tpu.sim.images, the
+vocabulary-tree presets, the native bindings of slslam_tpu.native, the
+numpy parts of
 slslam_tpu.engine.refine, slslam_tpu.ops.schur_cg and
 slslam_tpu.engine.batch_lc, and the numpy vocabulary training of
 slslam_tpu.loopclosure.voctree.  These tests hold each copy to its
@@ -13,8 +15,8 @@ original on the same inputs (exact equality; the refine's and the packer's
 copies are held in tests/test_torch_refine.py and
 tests/test_torch_schur_cg.py, the loop closure's joint problem packing in
 tests/test_torch_batch_lc.py), and check that importing every module of
-the port, chip_smoke and profile_replay loads neither jax nor
-slslam_tpu."""
+the port, chip_smoke, profile_replay and tools/torch_frontend_bench.py
+loads neither jax nor slslam_tpu."""
 
 import ast
 import dataclasses
@@ -209,6 +211,103 @@ def test_vocabulary_training_identical():
         np.testing.assert_array_equal(b, a)
 
 
+def test_vocabulary_presets_identical():
+    for preset in ("indoor", "outdoor", "outdoor_long_loop"):
+        assert (dataclasses.asdict(getattr(tvoc.VocTreeParams, preset)())
+                == dataclasses.asdict(getattr(jvoc.VocTreeParams, preset)()))
+    assert (dataclasses.asdict(tvoc.VocTreeParams())
+            == dataclasses.asdict(jvoc.VocTreeParams()))
+
+
+def _raw_segments(seed, n=60):
+    """Grower-like output: near-parallel stroke-edge pairs, collinear
+    fragments and strays, with gradient directions of both polarities."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(20, 600, (n // 3, 4))
+    d = base[:, 2:4] - base[:, 0:2]
+    nrm = np.stack([-d[:, 1], d[:, 0]], 1)
+    nrm /= np.linalg.norm(d, axis=1, keepdims=True)
+    off = rng.uniform(0.6, 4.0, (n // 3, 1))
+    twin = base + np.concatenate([nrm, nrm], 1) * off
+    frag = base.copy()
+    frag[:, 0:2] = base[:, 2:4] + d * rng.uniform(0.02, 0.05, (n // 3, 1))
+    frag[:, 2:4] = frag[:, 0:2] + d * 0.5
+    segs = np.concatenate([base, twin, frag])
+    ang = rng.uniform(0, 2 * np.pi, len(segs))
+    g = np.stack([np.sin(ang), -np.cos(ang)], 1)
+    g[n // 3:2 * (n // 3)] = -g[:n // 3]        # the twins: anti-parallel
+    return segs, g
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_detector_postprocessing_identical(seed):
+    from slslam_tpu.frontend import detector as jdet
+    from slslam_tpu_torch.frontend import detector as tdet
+    segs, g = _raw_segments(seed)
+    np.testing.assert_array_equal(tdet.fuse_stroke_edge_pairs(segs, g),
+                                  jdet.fuse_stroke_edge_pairs(segs, g))
+    np.testing.assert_array_equal(tdet.merge_collinear_segments(segs),
+                                  jdet.merge_collinear_segments(segs))
+    a = np.linspace(-7, 7, 29)
+    np.testing.assert_array_equal(tdet._angle_diff(a, 0.3),
+                                  jdet._angle_diff(a, 0.3))
+
+
+def test_image_renderer_and_draw_segments_identical():
+    from slslam_tpu.sim import images as jimg
+    from slslam_tpu_torch.sim import images as timg
+    segs = np.array([[50.0, 50.0, 500.0, 80.0], [10.0, 400.0, 700.0, -20.0],
+                     [3.0, 3.0, 3.5, 3.2]])
+    for noise in (0.0, 1.5):
+        np.testing.assert_array_equal(
+            timg.draw_segments(segs, 640, 480, noise=noise,
+                               rng=np.random.default_rng(1)),
+            jimg.draw_segments(segs, 640, 480, noise=noise,
+                               rng=np.random.default_rng(1)))
+    jr = jimg.StereoImageRenderer(jsim.house_segments(), seed=5)
+    tr = timg.StereoImageRenderer(tsim.house_segments(), seed=5)
+    for T in jsim.wave_trajectory(400)[::150]:
+        a, b = jr.render(T), tr.render(T)
+        np.testing.assert_array_equal(b[0], a[0])
+        np.testing.assert_array_equal(b[1], a[1])
+        assert sorted(b[2]) == sorted(a[2])
+
+
+def test_matcher_helpers_identical():
+    from slslam_tpu.frontend import matcher as jm
+    from slslam_tpu_torch.frontend import matcher as tm
+    rng = np.random.default_rng(8)
+    a = rng.uniform(0, 600, (30, 4))
+    b = a + rng.normal(0, 5, a.shape)
+    b[::4, 1] = b[::4, 3]                       # zero vertical extent
+    np.testing.assert_array_equal(tm._seg_angle(a), jm._seg_angle(a))
+    np.testing.assert_array_equal(tm._angdiff(a[:, 0], b[:, 1]),
+                                  jm._angdiff(a[:, 0], b[:, 1]))
+    np.testing.assert_array_equal(tm._overlap_y_matrix(a, b),
+                                  jm._overlap_y_matrix(a, b))
+    for sl, sr in zip(a, b):
+        np.testing.assert_array_equal(tm.StereoLineMatcher._obs(sl, sr),
+                                      jm.StereoLineMatcher._obs(sl, sr))
+    # the stereo pairing's gates, order and one-to-one resolution, on
+    # descriptors with ties (repeated rows)
+    d = rng.standard_normal((30, 72)).astype(np.float32)
+    d[10:20] = d[:10]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    right = a.copy()
+    right[:, [0, 2]] -= rng.uniform(0, 40, (30, 1))
+    args = (a, right, d, d[rng.permutation(30)])
+    pairs = tm.StereoLineMatcher._stereo_pairs(_bare(tm), *args)
+    assert len(pairs) >= 10
+    assert pairs == jm.StereoLineMatcher._stereo_pairs(_bare(jm), *args)
+
+
+def _bare(mod):
+    """A matcher of ``mod`` with the default gates and no detector."""
+    m = mod.StereoLineMatcher.__new__(mod.StereoLineMatcher)
+    m.max_disparity, m.min_desc_sim = 150.0, 0.0
+    return m
+
+
 def _detections(seed=4):
     """Raw detections (k, old_k, match) with runs, gaps and a jump."""
     rng = np.random.default_rng(seed)
@@ -289,7 +388,8 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """A fresh interpreter imports every module of the port, chip_smoke
     and profile_replay: jax and slslam_tpu stay out of sys.modules."""
-    mods = _port_modules() + ["chip_smoke", "profile_replay"]
+    mods = _port_modules() + ["chip_smoke", "profile_replay",
+                              "tools.torch_frontend_bench"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -308,7 +408,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "slslam_tpu_torch.engine.batch_lc",
               "slslam_tpu_torch.engine.slam",
               "slslam_tpu_torch.checkpoint", "slslam_tpu_torch.native",
-              "slslam_tpu_torch.frontend.io"):
+              "slslam_tpu_torch.frontend.io",
+              "slslam_tpu_torch.frontend.detector",
+              "slslam_tpu_torch.frontend.descriptor",
+              "slslam_tpu_torch.frontend.matcher",
+              "slslam_tpu_torch.sim.images", "tools.torch_frontend_bench"):
         assert m in mods, m
 
 
@@ -320,6 +424,7 @@ def _sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "profile_replay.py")
+    yield os.path.join(REPO, "tools", "torch_frontend_bench.py")
 
 
 def test_port_sources_name_no_jax_import():

@@ -10,8 +10,9 @@ launch's bit for bit); the line-major plan's shapes; and a short global
 refine on the card against the same refine on the CPU; and the gaps of
 the prior-edge window solve and of a 1-round refine, card against CPU,
 beside what rounding alone does to the CPU's result; K2 with aid and asd
-lines through the chain rule; and the interactive engine on the card
-against the CPU.  They run only
+lines through the chain rule; the interactive engine on the card
+against the CPU; and the image front-end's maps, descriptors and ``cli
+track`` on the card against the CPU.  They run only
 with SLSLAM_GPU_TESTS=1 on a machine with an NVIDIA GPU and nvcc, and skip
 otherwise.  The file imports no jax, so on a machine without it run
 
@@ -411,3 +412,92 @@ def test_interactive_slam_on_gpu_matches_cpu(cuda_device):
     for a, b in zip(g.trajectory(), c.trajectory(), strict=True):
         np.testing.assert_allclose(a.t, b.t, rtol=0, atol=1e-6)
         np.testing.assert_allclose(a.R, b.R, rtol=0, atol=1e-6)
+
+
+def _house_images(n, stride=3):
+    from slslam_tpu_torch.sim import (StereoImageRenderer, house_segments,
+                                      wave_trajectory)
+    ren = StereoImageRenderer(house_segments(), seed=0)
+    return [ren.render(T)[:2] for T in wave_trajectory(400)[::stride][:n]]
+
+
+@pytest.mark.gpu
+def test_image_gradients_on_gpu_match_cpu(cuda_device):
+    """The front-end's maps on the card against the CPU, on two rendered
+    stereo frames: magnitude within 1e-4, the level-line angle within 1e-5
+    rad where the magnitude reaches the detector's threshold."""
+    import numpy as np
+
+    from slslam_tpu_torch.frontend.detector import image_gradients
+
+    for pair in _house_images(2):
+        for img in pair:
+            t = torch.as_tensor(img)
+            mg, ag = (x.cpu().numpy() for x in image_gradients(t.cuda()))
+            mc, ac = (x.numpy() for x in image_gradients(t))
+            assert np.abs(mg - mc).max() <= 1e-4
+            read = mc >= 5.0
+            gap = np.abs(np.angle(np.exp(1j * (ag.astype(np.float64)
+                                               - ac))))
+            assert gap[read].max() <= 1e-5
+
+
+@pytest.mark.gpu
+def test_describe_on_gpu_matches_cpu(cuda_device):
+    """The descriptors of one frame's segments on identical maps, card
+    against CPU, within 1e-6 after normalization."""
+    import numpy as np
+
+    from slslam_tpu_torch.frontend.descriptor import describe
+    from slslam_tpu_torch.frontend.detector import LineSegmentDetector
+
+    img = _house_images(1)[0][0]
+    segs, mag, ang = LineSegmentDetector(device="cpu").detect_with_gradients(
+        img)
+    assert len(segs) >= 40
+    got = describe(mag.cuda(), ang.cuda(), segs)
+    want = describe(mag, ang, segs)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_track_on_gpu_matches_cpu(cuda_device, tmp_path):
+    """``cli track`` over 10 rendered frames in float64 on the card and on
+    the CPU, each ``Slam`` fed one RANSAC noise stream: the same keyframes
+    and landmark count, trajectories within 1e-6 m."""
+    import numpy as np
+
+    from PIL import Image
+
+    import slslam_tpu_torch.engine as engine
+    from slslam_tpu_torch import cli
+    from slslam_tpu_torch.ops.ransac import gumbel_noise
+
+    for side in ("left", "right"):
+        (tmp_path / side).mkdir()
+    for i, pair in enumerate(_house_images(10)):
+        for side, img in zip(("left", "right"), pair):
+            Image.fromarray(np.clip(np.rint(img), 0, 255).astype(
+                np.uint8)).save(str(tmp_path / side / f"{i:04d}.png"))
+
+    def hook(i, H, Nb):
+        g = torch.Generator().manual_seed(700 + i)
+        return gumbel_noise(g, (H, Nb), torch.float64, "cpu")
+
+    orig = engine.Slam
+    engine.Slam = lambda cfg, device: orig(cfg, device=device,
+                                           gumbel_hook=hook)
+    try:
+        stats = {d: cli.main(["track", "--left-dir", str(tmp_path / "left"),
+                              "--right-dir", str(tmp_path / "right"),
+                              "--device", d, "--dtype", "float64", "--out",
+                              str(tmp_path / d)])
+                 for d in ("cuda", "cpu")}
+    finally:
+        engine.Slam = orig
+    assert stats["cuda"]["keyframe_frames"] == stats["cpu"]["keyframe_frames"]
+    assert len(stats["cuda"]["keyframe_frames"]) >= 2
+    assert stats["cuda"]["num_landmarks"] == stats["cpu"]["num_landmarks"]
+    a = np.loadtxt(tmp_path / "cuda" / "trajectory.txt")
+    b = np.loadtxt(tmp_path / "cpu" / "trajectory.txt")
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
