@@ -85,13 +85,16 @@ Phases, each printing one JSON line:
    below 0.35 m (tests/test_frontend.py's gate), the stage split and the
    device's busy share over the front-end loop; (c) ``cli track`` over 40
    rendered frames written as PNGs, through ``Slam`` at ``SlamConfig()``'s
-   gates in f32 (the main path of the slice): keyframe ATE below 0.35 m,
-   K2 ``full`` launches == window LM iterations, ``lines`` == 4 x window
+   gates in f32 (the main path of the slice): keyframes and keyframe ATE
+   within the CPU's band on the same frames (TRACK_KEYFRAMES,
+   TRACK_ATE_MAX), K2 ``full`` launches == window LM iterations, ``lines`` == 4 x window
    solves, ``cams`` within the VO's cap, K1 launched, no torch.func
    Jacobian on CUDA tensors, the native walker; (d) the interactive PGO
    case of tests/test_torch_slam_pgo.py in f64: every pose-graph solve of
    the CPU's run repeated from its state on the card and on the CPU
-   (within 1e-9 m), and the whole run on the card beside the CPU's; then
+   (within 1e-9 m), and the whole run on the card beside the CPU's (the
+   same keyframes, edges and PGO frames, trajectories within
+   PGO_TRAJ_TOL); then
    every kernel at every shape (b) and (c) launched it at (role
    "frontend").
 
@@ -132,7 +135,18 @@ FRONTEND_FRAMES = 60
 FE_CHECK_FRAMES = 5
 TRACK_FRAMES = 40
 TRACK_STRIDE = 3
+# phase 8 (c)'s run on the CPU (tools/jax_frontend_reference.py track):
+# over RANSAC seeds and rounding witnesses the JAX package takes 10
+# keyframes at keyframe ATE 0.042-0.287 m (f32 and f64), the port 10-11
+# keyframes at 0.044-0.374 m; the card's run is held to JAX's band, its
+# top with 5 % headroom
+TRACK_ATE_MAX = 0.30
+TRACK_KEYFRAMES = (10, 11)
 PGO_FRAMES = 80
+# phase 8 (d)'s whole f64 runs, card against CPU: 1e-15 relative input
+# changes move the CPU's own run 1.91e-5 to 2.61e-5 m
+# (tools/jax_frontend_reference.py pgo); about twice the top of that band
+PGO_TRAJ_TOL = 5e-5
 # the front-end's device stages, card against CPU (phase 8 (a)): magnitude
 # (absolute, gray levels per pixel), level-line angle where the magnitude
 # reaches the detector's threshold, normalized descriptor
@@ -1168,10 +1182,10 @@ def phase8(dev):
 
     # (b) first: its rendered frames also feed (a)
     kernels.reset_launch_counts()
-    rec_b, _, _, _ = fb.run(FRONTEND_FRAMES, 1, dev, "float32", profile=True)
+    rec_b, _, _, _ = fb.run(FRONTEND_FRAMES, 1, dev, profile=True)
     launches_b = dict(kernels.launch_counts)
     _merge_shapes(shapes8, kernels.launch_shapes)
-    cfg_b = fb.frontend_config("float32")
+    cfg_b = fb.frontend_config()
     images, _ = fb.render(cfg_b, FE_CHECK_FRAMES)
     phase8a(dev, images)
     log({"phase": 8, "run": f"(b) front-end bench, {FRONTEND_FRAMES} "
@@ -1237,6 +1251,7 @@ def phase8(dev):
     log({"phase": 8, "run": f"(c) cli track, {TRACK_FRAMES} rendered "
          f"house frames (stride {TRACK_STRIDE}), float32, reference gates",
          "kf": len(kf), "keyframe_frames": kf, "ate_kf_m": ate_c,
+         "ate_kf_max_m": TRACK_ATE_MAX,
          "wall_s": wall, "frames_per_s": TRACK_FRAMES / wall,
          "window_solves": calls["staged_local_ba"],
          "window_lm_iterations": slam.sum_num_iteration,
@@ -1246,10 +1261,11 @@ def phase8(dev):
              "proc_pose_estimation_mean_s", "proc_local_ba_mean_s",
              "embedding_walker")}, "launches": launches})
     checks = {
-        ">= 3 keyframes": len(kf) >= 3,
+        "keyframes in the CPU's band":
+            TRACK_KEYFRAMES[0] <= len(kf) <= TRACK_KEYFRAMES[1],
         "finite poses": all(np.all(np.isfinite(T.t))
                             and np.all(np.isfinite(T.R)) for T in traj),
-        "keyframe ATE < 0.35 m": ate_c < 0.35,
+        "keyframe ATE within JAX's band": ate_c <= TRACK_ATE_MAX,
         "full launches == window LM iterations":
             by_variant["full"] == slam.sum_num_iteration > 0,
         "lines launches == lines_gn_iters x window solves":
@@ -1280,10 +1296,11 @@ def phase8d(dev):
     keeps the engine as it stands before each pose-graph solve; each such
     solve then runs from that state on the card and on the CPU: keyframe
     poses within 1e-9 m.  The whole run on the card beside the CPU's (one
-    RANSAC noise stream) must run the PGO as often; its gap is recorded,
-    to be read against the CPU's own band under 1e-15 input changes
-    (tools/jax_frontend_reference.py pgo): this run's window solves
-    amplify rounding (tests/test_torch_slam_lc.py)."""
+    RANSAC noise stream) must take the same keyframes and edges and run
+    the PGO at the same frames, with trajectories within PGO_TRAJ_TOL:
+    this run's window solves amplify rounding (tests/test_torch_slam_lc.py),
+    so the whole runs are held to the CPU's own band under 1e-15 input
+    changes (tools/jax_frontend_reference.py pgo), not to 1e-9 m."""
     import copy
     import dataclasses
     import numpy as np
@@ -1313,12 +1330,14 @@ def phase8d(dev):
             assigner, len(src.base), noise=0.01, seed=7)
         return s
 
-    # the CPU's run and its states before each solve
+    # the CPU's run and its states before each solve; the frames of the
+    # solves on both sides
     cpu = make("cpu")
-    before = []
+    before, pgo_frames = [], {"cpu": [], "cuda": []}
 
     def keep_state(_orig=cpu.pose_optimization):
         before.append(copy.deepcopy(cpu))
+        pgo_frames["cpu"].append(cpu.frame_id)
         _orig()
 
     cpu.pose_optimization = keep_state
@@ -1327,6 +1346,12 @@ def phase8d(dev):
              if cpu.process_frame(frames[i], i)]
     t_cpu = time.perf_counter() - t0
     gpu = make(dev)
+
+    def note_frame(_orig=gpu.pose_optimization):
+        pgo_frames["cuda"].append(gpu.frame_id)
+        _orig()
+
+    gpu.pose_optimization = note_frame
     t0 = time.perf_counter()
     k_gpu = [i for i in range(len(frames))
              if gpu.process_frame(frames[i], i)]
@@ -1345,6 +1370,7 @@ def phase8d(dev):
 
     out = {"kf": len(k_cpu), "lc_cnt": cpu.lc_cnt,
            "pgo_runs_cuda": gpu.pgo_runs, "pgo_runs_cpu": cpu.pgo_runs,
+           "pgo_frames": pgo_frames,
            "pgo_solve_gap_card_cpu_m": solve_gaps,
            "same_keyframes": k_gpu == k_cpu,
            "same_edges": gpu.state.edge_set == cpu.state.edge_set,
@@ -1353,9 +1379,15 @@ def phase8d(dev):
            "max_traj_diff_m": max(
                float(np.linalg.norm(x.t - y.t))
                for x, y in zip(gpu.trajectory(), cpu.trajectory())),
+           "traj_tolerance_m": PGO_TRAJ_TOL,
            "wall_cuda_s": t_gpu, "wall_cpu_s": t_cpu}
     checks = {"the PGO ran": cpu.pgo_runs > 0 and gpu.pgo_runs > 0,
               "same PGO count": gpu.pgo_runs == cpu.pgo_runs,
+              "same PGO frames": pgo_frames["cuda"] == pgo_frames["cpu"],
+              "same keyframes": out["same_keyframes"],
+              "same edges": out["same_edges"],
+              "whole runs within PGO_TRAJ_TOL":
+                  out["max_traj_diff_m"] <= PGO_TRAJ_TOL,
               "every solve from one state within 1e-9 m":
                   len(solve_gaps) == cpu.pgo_runs
                   and max(solve_gaps) <= 1e-9}

@@ -239,6 +239,11 @@ def merge_collinear_segments(segs, angle_tol=2.0 * np.pi / 180.0,
     return np.stack(out)
 
 
+def run_stage(name, fn, *args):
+    """The front-end's default stage runner: ``fn(*args)``."""
+    return fn(*args)
+
+
 class LineSegmentDetector:
     """``detect(img)`` -> (N, 4) segments; the gradient maps run on
     ``device`` (default the card), the region grower on the host
@@ -272,13 +277,17 @@ class LineSegmentDetector:
         return image_gradients(torch.as_tensor(img, dtype=torch.float32,
                                                device=self.device))
 
-    def detect_with_gradients(self, img):
+    def detect_with_gradients(self, img, stage=run_stage):
         """``detect`` that also returns the (magnitude, angle) maps on the
         device, which the descriptor reads (detector.py:235-258).  The maps
-        reach the host in one copy, for the grower."""
-        mag, angle = self.gradients(img)
-        host = torch.stack([mag, angle]).cpu().numpy()
-        return self.segments(host[0], host[1]), mag, angle
+        reach the host in one copy, for the grower.  Each step runs through
+        ``stage(name, fn, *args)`` (``gradients``, ``to_host``, ``grower``,
+        ``fuse_merge``), which a caller may replace to time them."""
+        mag, angle = stage("gradients", self.gradients, img)
+        host = stage("to_host",
+                     lambda: torch.stack([mag, angle]).cpu().numpy())
+        grown = stage("grower", self.grow, host[0], host[1])
+        return stage("fuse_merge", self.postprocess, *grown), mag, angle
 
     def segments(self, mag: np.ndarray, angle: np.ndarray) -> np.ndarray:
         """Host maps -> (N, 4) segments: the grower, then the stroke-edge

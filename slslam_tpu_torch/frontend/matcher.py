@@ -30,7 +30,7 @@ import numpy as np
 
 from ..config import CameraConfig
 from .descriptor import DESC_DIM, describe
-from .detector import LineSegmentDetector
+from .detector import LineSegmentDetector, run_stage
 
 
 def _seg_angle(s):
@@ -117,10 +117,11 @@ class StereoLineMatcher:
 
     # -- one image ---------------------------------------------------------
 
-    def side(self, img):
-        """One image -> (segments, descriptors)."""
-        segs, mag, ang = self.detector.detect_with_gradients(img)
-        return segs, describe(mag, ang, segs)
+    def side(self, img, stage=run_stage):
+        """One image -> (segments, descriptors); the detector's steps and
+        ``describe`` run through ``stage`` (``detect_with_gradients``)."""
+        segs, mag, ang = self.detector.detect_with_gradients(img, stage)
+        return segs, stage("describe", describe, mag, ang, segs)
 
     # -- temporal association ----------------------------------------------
 

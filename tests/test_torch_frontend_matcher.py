@@ -7,7 +7,8 @@ StereoImageRenderer (seed 0, stroke 1.5, noise 2.0) go through JAX's
 the same track ids in every frame, observations within 1e-4 px, the same
 live tracks and descriptors (within 1e-6) after the run.  Then the
 matcher's contracts: ``descriptors`` for the engine, a worker's exception
-reaching the caller.
+reaching the caller, and the stage runner that the front-end bench times
+``side`` through.
 
 JAX's native binding loads the library on first use without a lock
 (slslam_tpu/native.py:78-85): when the matcher's two threads make that
@@ -86,10 +87,10 @@ def test_worker_exception_reaches_the_caller(images):
     orig = m.detector.detect_with_gradients
     bad = np.zeros((3, 3), np.float32)
 
-    def detect(img):
+    def detect(img, *stage):
         if img is bad:
             raise ValueError("left side failed")
-        return orig(img)
+        return orig(img, *stage)
 
     m.detector.detect_with_gradients = detect
     with pytest.raises(ValueError, match="left side failed"):
@@ -99,3 +100,23 @@ def test_worker_exception_reaches_the_caller(images):
     assert m.process(2, *images[0])
     m.close()
     assert m._pool is None
+
+
+def test_stage_runner_sees_every_step_of_a_side(images):
+    """``side`` runs each front-end step through its stage runner, in the
+    order ``process`` runs them, and returns what it returns without one:
+    tools/torch_frontend_bench.py's stage split times this path."""
+    m = StereoLineMatcher(device="cpu")
+    seen = []
+
+    def stage(name, fn, *a):
+        seen.append(name)
+        return fn(*a)
+
+    segs, desc = m.side(images[1][0], stage)
+    ref_segs, ref_desc = m.side(images[1][0])
+    assert seen == ["gradients", "to_host", "grower", "fuse_merge",
+                    "describe"]
+    assert len(segs) > 20
+    np.testing.assert_array_equal(segs, ref_segs)
+    np.testing.assert_array_equal(desc, ref_desc)

@@ -2,6 +2,7 @@
 
     python tools/jax_frontend_reference.py slice [--witnesses 3]
     python tools/jax_frontend_reference.py pgo [--witnesses 3]
+    python tools/jax_frontend_reference.py track [--witnesses 3]
 
 ``slice``: tests/test_frontend.py's end-to-end run (25 rendered house
 frames at stride 3, render seed 0 -> matcher -> BatchSlam with every frame
@@ -20,6 +21,18 @@ frame 0 on scaled by 1 + 1e-15 N(0, 1): each witness's PGO runs, window
 LM iterations and largest keyframe position difference from the
 unchanged run, the band that phase 8 (d)'s card-vs-CPU gap is read
 against.
+
+``track``: chip_smoke.py phase 8 (c)'s run (40 rendered house frames at
+stride 3, render seed 0, written as 8-bit PNGs, ``cli track`` at
+``SlamConfig()``'s gates).  The JAX package's ``cmd_track`` runs in
+float64 and in float32 (x64 on, as its CPU tests run it) with the default
+RANSAC seed, with ``--witnesses`` other RANSAC seeds, and with
+``--witnesses`` copies of the tracked observations scaled by 1 + e N(0, 1)
+(e = 1e-15 in float64, 2**-24 in float32, one rounding of the pixel
+coordinates); the port's ``cli track`` runs on the CPU in both dtypes with its own
+RANSAC stream, at the default seed and the other seeds.  Prints each run's keyframes,
+keyframe ATE and window LM iterations: the band that phase 8 (c)'s card
+run is read against.
 
 One JSON line.  All of it is CPU work: the walls say nothing of any
 accelerator.
@@ -161,15 +174,115 @@ def pgo_band(witnesses):
     return out
 
 
+TRACK_FRAMES, TRACK_STRIDE = 40, 3      # chip_smoke.py phase 8 (c)
+
+
+def track_band(witnesses):
+    import tempfile
+    from PIL import Image
+    from slslam_tpu import cli as jcli
+    from slslam_tpu import engine as jengine
+    from slslam_tpu import native as jnative
+    from slslam_tpu.sim import house_segments, wave_trajectory
+    from slslam_tpu.sim.images import StereoImageRenderer
+    from slslam_tpu_torch import cli as tcli
+    from slslam_tpu_torch import engine as tengine
+
+    jnative.available()     # loaded before the matcher's threads race on it
+    poses = wave_trajectory(num_frames=400)[::TRACK_STRIDE][:TRACK_FRAMES]
+    ren = StereoImageRenderer(house_segments(), seed=0)
+
+    def ate(traj, kf):
+        gt = [poses[i] for i in kf]
+        T0 = gt[0]
+        return float(np.mean([np.linalg.norm(a.t - (g @ T0.inv()).inv().t)
+                              for a, g in zip(traj, gt)]))
+
+    def jax_run(tmp, dtype, rseed, scale, seed):
+        made = []
+
+        class Recording(jengine.Slam):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                self.kf_frames = []
+                made.append(self)
+
+            def process_frame(self, obs, frame_id, normalized=True):
+                if scale:
+                    rng = np.random.default_rng(seed * 1000 + frame_id)
+                    obs = {k: v * (1.0 + scale * rng.standard_normal(8))
+                           for k, v in obs.items()}
+                if super().process_frame(obs, frame_id, normalized):
+                    self.kf_frames.append(frame_id)
+                    return True
+                return False
+
+        saved, jengine.Slam = jengine.Slam, Recording
+        try:
+            jcli.main(["track", "--left-dir", os.path.join(tmp, "left"),
+                       "--right-dir", os.path.join(tmp, "right"),
+                       "--platform", "cpu", "--dtype", dtype, "--rseed",
+                       str(rseed)])
+        finally:
+            jengine.Slam = saved
+        s, = made
+        return s.kf_frames, s.trajectory(), s.sum_num_iteration
+
+    def port_run(tmp, dtype, rseed):
+        made = []
+
+        def keep(*a, _slam=tengine.Slam, **k):
+            made.append(_slam(*a, **k))
+            return made[-1]
+
+        saved, tengine.Slam = tengine.Slam, keep
+        try:
+            stats = tcli.main(["track", "--left-dir",
+                               os.path.join(tmp, "left"), "--right-dir",
+                               os.path.join(tmp, "right"), "--device", "cpu",
+                               "--dtype", dtype, "--rseed", str(rseed)])
+        finally:
+            tengine.Slam = saved
+        s, = made
+        return stats["keyframe_frames"], s.trajectory(), s.sum_num_iteration
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for side in ("left", "right"):
+            os.makedirs(os.path.join(tmp, side))
+        for i, T in enumerate(poses):
+            for side, img in zip(("left", "right"), ren.render(T)[:2]):
+                Image.fromarray(np.clip(np.rint(img), 0, 255).astype(
+                    np.uint8)).save(os.path.join(tmp, side, f"{i:04d}.png"))
+        for dtype, eps in (("float64", 1e-15), ("float32", 2.0 ** -24)):
+            runs = [(f"jax_{dtype}", 4, 0.0, 0)]
+            runs += [(f"jax_{dtype}_rseed_{r}", r, 0.0, 0)
+                     for r in range(1, witnesses + 1)]
+            runs += [(f"jax_{dtype}_witness_{w}", 4, eps, w)
+                     for w in range(1, witnesses + 1)]
+            for name, rseed, scale, seed in runs:
+                kf, traj, it = jax_run(tmp, dtype, rseed, scale, seed)
+                out[name] = {"keyframes": len(kf), "ate_kf_m": ate(traj, kf),
+                             "lm_iterations": int(it)}
+            for rseed in range(witnesses + 1):
+                kf, traj, it = port_run(tmp, dtype, rseed or 4)
+                name = f"port_cpu_{dtype}" + (f"_rseed_{rseed}" if rseed
+                                              else "")
+                out[name] = {"keyframes": len(kf), "ate_kf_m": ate(traj, kf),
+                             "lm_iterations": int(it)}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("case", choices=("slice", "pgo"))
+    ap.add_argument("case", choices=("slice", "pgo", "track"))
     ap.add_argument("--witnesses", type=int, default=3)
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     torch.set_num_threads(1)
-    band = slice_band if args.case == "slice" else pgo_band
+    band = {"slice": slice_band, "pgo": pgo_band,
+            "track": track_band}[args.case]
     print(json.dumps({"case": args.case, **band(args.witnesses)}))
 
 

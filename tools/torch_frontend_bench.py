@@ -7,10 +7,12 @@ package): the same workload (the 74-segment house, the wave trajectory,
 640x480 stereo, the renderer's stroke 1.5 and noise 2.0, render seed 0),
 the same JSON keys, run on one CUDA device in float32.  The front-end fps
 is frames over the wall of ``StereoLineMatcher.process`` as a user calls
-it (the left and right images on the matcher's 2-thread pool).  A second,
-serial pass over the same images splits one frame's front-end wall into
-its stages, each ended by a device synchronize: ``gradients`` (the maps on
-the card), ``to_host`` (the one copy of magnitude and angle), ``grower``
+it (the left and right images on the matcher's 2-thread pool).  A second
+pass over the same images runs the same path (``StereoLineMatcher.side``
+for each image, one after the other, then ``associate``) with a stage
+runner that ends each stage by a device synchronize and times it, which
+splits one frame's front-end wall into ``gradients`` (the maps on the
+card), ``to_host`` (the one copy of magnitude and angle), ``grower``
 (the native region grower), ``fuse_merge`` (the stroke-edge fusion and the
 collinear merge), ``describe`` (the descriptors on the card and their copy
 back), each summed over both images, and ``match`` (stereo pairing and
@@ -18,7 +20,7 @@ temporal association).  ``--profile`` adds the device's busy share over
 the front-end loop (``torch.profiler``, as profile_replay.py measures it).
 
 Usage:  python3 tools/torch_frontend_bench.py [--frames 60] [--stride 1]
-            [--device cuda] [--dtype float32] [--profile]
+            [--device cuda] [--profile]
 Prints one JSON line.
 """
 
@@ -41,11 +43,11 @@ STAGES = ("gradients", "to_host", "grower", "fuse_merge", "describe",
           "match")
 
 
-def frontend_config(dtype):
-    """tools/frontend_bench.py's configuration: ``SlamConfig()`` with every
-    frame a keyframe, in ``dtype``."""
+def frontend_config():
+    """tools/frontend_bench.py's configuration: ``SlamConfig()`` in float32
+    with every frame a keyframe."""
     from slslam_tpu_torch.config import SlamConfig
-    return dataclasses.replace(SlamConfig(), compute_dtype=dtype,
+    return dataclasses.replace(SlamConfig(), compute_dtype="float32",
                                kf_rot_thr=1e-9, kf_tr_thr=1e-9)
 
 
@@ -76,14 +78,11 @@ def track(matcher, images):
 
 
 def stage_split(cfg, images, device):
-    """Milliseconds per frame of each front-end stage (mean over frames),
-    one image after the other and synchronized, on a fresh matcher; the
-    grower also per image."""
-    import torch
-    from slslam_tpu_torch.frontend.descriptor import describe
+    """Milliseconds per frame of each front-end stage (mean over frames):
+    the path of ``StereoLineMatcher.process`` on a fresh matcher, one image
+    after the other, each stage synchronized; the grower also per image."""
     from slslam_tpu_torch.frontend.matcher import StereoLineMatcher
     matcher = StereoLineMatcher(cfg.camera, device=device)
-    det = matcher.detector
     totals = dict.fromkeys(STAGES, 0.0)
 
     def timed(stage, fn, *a):
@@ -95,14 +94,7 @@ def stage_split(cfg, images, device):
 
     _sync(device)
     for i, pair in enumerate(images):
-        sides = []
-        for img in pair:
-            mag, ang = timed("gradients", det.gradients, img)
-            host = timed("to_host",
-                         lambda: torch.stack([mag, ang]).cpu().numpy())
-            grown = timed("grower", det.grow, host[0], host[1])
-            segs = timed("fuse_merge", det.postprocess, *grown)
-            sides.append((segs, timed("describe", describe, mag, ang, segs)))
+        sides = [matcher.side(img, timed) for img in pair]
         timed("match", matcher.associate, i, *sides)
     n = len(images)
     out = {k: 1e3 * v / n for k, v in totals.items()}
@@ -133,15 +125,14 @@ def nvidia_smi():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def run(num_frames=60, stride=1, device="cuda", dtype="float32",
-        profile=False):
+def run(num_frames=60, stride=1, device="cuda", profile=False):
     """The bench's record (the JSON line's keys)."""
     import torch
     from slslam_tpu_torch import resolve_device
     from slslam_tpu_torch.bench import ate
     from slslam_tpu_torch.frontend.matcher import StereoLineMatcher
     dev = resolve_device(device)
-    cfg = frontend_config(dtype)
+    cfg = frontend_config()
     images, poses = render(cfg, num_frames, stride)
     # the first frame loads the card's modules: warm up on a throwaway
     # matcher outside the timed loop
@@ -167,7 +158,6 @@ def run(num_frames=60, stride=1, device="cuda", dtype="float32",
         "ate_refined_m": ate(ref.trajectory, gt) if len(kfi) else None,
         "refine_iterations": ref.iterations,
         "grower": matcher.detector.grower,
-        "dtype": dtype,
         "stage_ms": stage_split(cfg, images, dev),
     }
     if dev.type == "cuda":
@@ -192,14 +182,11 @@ def main(argv=None):
     ap.add_argument("--stride", type=int, default=1,
                     help="temporal stride over the wave trajectory")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--dtype", default="float32",
-                    choices=("float32", "float64"))
     ap.add_argument("--profile", action="store_true",
                     help="also the device's busy share over the front-end "
                          "loop (torch.profiler)")
     args = ap.parse_args(argv)
-    out = run(args.frames, args.stride, args.device, args.dtype,
-              args.profile)[0]
+    out = run(args.frames, args.stride, args.device, args.profile)[0]
     print(json.dumps(out))
 
 
