@@ -5,8 +5,10 @@
     python -m slslam_tpu_torch.cli run --obs-dir data/it3f/line_tracking_result
     python -m slslam_tpu_torch.cli track --left-dir seq/left --right-dir \\
         seq/right [--vocab vocab.bin] --out /tmp/run
+    python -m slslam_tpu_torch.cli gen --frames 400 --out /tmp/house_seq
+    python -m slslam_tpu_torch.cli view --run /tmp/run
 
-The ``sim``, ``run`` and ``track`` commands of ``slslam_tpu.cli`` with their
+The commands of ``slslam_tpu.cli`` with their
 flags (the reference's --ba-window-size, --max-num-iter, --rseed, --robust,
 --stopfrm; main.cpp:22-27).  ``sim`` renders the house world along the wave
 trajectory (the port's copy of the simulation, render seed = --rseed);
@@ -24,10 +26,18 @@ and with ``--checkpoint-every N`` a resumable ``checkpoint.npz`` every N
 keyframes.  ``--engine batch`` replays through ``BatchSlam``; ``--refine``
 then follows with the global bundle adjustment (``refine_*`` stats,
 ``refine_ate_m``, ``trajectory_refined.txt``) and is ignored, with a
-warning, on the interactive engine.  ``--device`` defaults to ``cuda``;
-``--device cpu`` runs the plain twins.  The JAX CLI's plots, viewers and
-live views (``--live-dir``, ``--viz``, ``view``: P13) and its mesh flags
-(P12) are not ported.
+warning, on the interactive engine.  ``--plot`` writes a top-down
+``map.png`` and ``--viz`` a self-contained 3D viewer ``map.html`` into
+--out (``viz.py``, ``viz_interactive.py``); ``--live-dir`` writes the
+interactive engine's stereo tracking view ``tracking_%05d.png`` every
+``--live-every`` frames; ``--profile-dir`` records the command under
+``torch.profiler`` (CPU activity, and CUDA activity on the card) and
+writes a Chrome trace there; ``sim --verbose`` prints the engine's
+progress to stderr.  ``gen`` writes a rendered house sequence (line-track
+files and ``gt_trajectory.txt``) that ``run --obs-dir`` reads, and
+``view`` builds ``map.html`` from a finished run directory.  ``--device``
+defaults to ``cuda``; ``--device cpu`` runs the plain twins.  The JAX
+CLI's mesh and multihost flags (P12) are not ported.
 """
 
 from __future__ import annotations
@@ -61,6 +71,35 @@ def _gt_rows(poses_gt, kf_idx):
     from .evalio.writers import trajectory_rows
     T0 = poses_gt[kf_idx[0]]
     return trajectory_rows([(poses_gt[i] @ T0.inv()).inv() for i in kf_idx])
+
+
+def _write_maps(args, trajectory, segments, gt_rows, viz_trajectory=None):
+    """--plot's ``map.png`` and --viz's ``map.html`` in --out
+    (slslam_tpu/cli.py:120-130, 203-214)."""
+    if args.plot:
+        from .viz import plot_map
+        plot_map(trajectory, segments, os.path.join(args.out, "map.png"),
+                 gt_trajectory=gt_rows)
+    if args.viz:
+        from .viz_interactive import export_interactive_map
+        export_interactive_map(os.path.join(args.out, "map.html"),
+                               viz_trajectory or trajectory, segments,
+                               gt_rows=gt_rows)
+
+
+def _live_due(args, frame_id):
+    return args.live_dir is not None and frame_id % args.live_every == 0
+
+
+def _live_view(args, cfg, frame_id, obs, images=(None, None)):
+    """The stereo tracking view of one frame, ``tracking_%05d.png`` in
+    --live-dir (slslam_tpu/cli.py:268-276, 411-420): pixel observations
+    over the images, or over a blank canvas of the camera's size."""
+    from .viz import plot_observations
+    plot_observations(*images, obs, os.path.join(
+        args.live_dir, f"tracking_{frame_id:05d}.png"),
+        image_size=(cfg.camera.image_width, cfg.camera.image_height),
+        title=f"frame {frame_id}")
 
 
 def _batch(args, cfg, frames, poses_gt=None, frame_ids=None):
@@ -114,10 +153,14 @@ def _batch(args, cfg, frames, poses_gt=None, frame_ids=None):
             write_trajectory(os.path.join(args.out,
                                           "trajectory_refined.txt"),
                              ref.trajectory)
+        gt_rows = None
         if res.kf_count and poses_gt is not None:
+            gt_rows = _gt_rows(poses_gt, kf_idx)
             np.savetxt(os.path.join(args.out, "gt_trajectory.txt"),
-                       _gt_rows(poses_gt, kf_idx), delimiter="\t")
+                       gt_rows, delimiter="\t")
         _write_stats(args.out, stats)
+        _write_maps(args, res.trajectory, res.world_segments(min_len=0.5),
+                    gt_rows, ref.trajectory if ref is not None else None)
     return stats
 
 
@@ -134,7 +177,9 @@ def _interactive(args, cfg, frames, poses_gt=None, normalized=True,
     if args.refine:
         print("warning: --refine only applies to --engine batch; ignored "
               "on the interactive engine", file=sys.stderr)
+    verbose = getattr(args, "verbose", False)      # sim's flag
     slam = Slam(cfg, device=args.device)
+    slam.verbose = verbose
     if setup is not None:
         setup(slam)
     kf_frames = []
@@ -151,6 +196,9 @@ def _interactive(args, cfg, frames, poses_gt=None, normalized=True,
                 os.makedirs(args.out, exist_ok=True)
                 save_checkpoint(slam, os.path.join(args.out,
                                                    "checkpoint.npz"))
+        if verbose and frame_id % 20 == 0:
+            print(f"frame {frame_id}: kfs={len(kf_frames)} "
+                  f"lms={len(slam.state.lms)}", file=sys.stderr)
     wall = time.perf_counter() - t0
     print(f"processed {n} frames -> {len(kf_frames)} keyframes in "
           f"{wall:.2f}s ({len(kf_frames) / max(wall, 1e-9):.2f} kf/s) on "
@@ -173,6 +221,8 @@ def _interactive(args, cfg, frames, poses_gt=None, normalized=True,
             np.savetxt(os.path.join(args.out, "gt_trajectory.txt"), gt_rows,
                        delimiter="\t")
         _write_stats(args.out, stats)
+        _write_maps(args, slam.trajectory(),
+                    slam._landmark_world_segments(min_len=0.5), gt_rows)
     return stats
 
 
@@ -187,9 +237,14 @@ def cmd_sim(args):
     if args.engine == "batch":
         return _batch(args, cfg, [ren.observe(T) for T in poses_gt],
                       poses_gt)
-    return _interactive(args, cfg, ((i, ren.observe(T))
-                                    for i, T in enumerate(poses_gt)),
-                        poses_gt)
+
+    def frames():
+        for i, T in enumerate(poses_gt):
+            if _live_due(args, i):
+                _live_view(args, cfg, i, ren.observe_pixels(T))
+            yield i, ren.observe(T)
+
+    return _interactive(args, cfg, frames(), poses_gt)
 
 
 def cmd_run(args):
@@ -206,7 +261,16 @@ def cmd_run(args):
             pairs.append((frame_id, obs))
         frames = normalize_frames([o for _, o in pairs], cfg.camera)
         return _batch(args, cfg, frames, frame_ids=[i for i, _ in pairs])
-    return _interactive(args, cfg, loader, normalized=False)
+
+    def frames():
+        for frame_id, obs in loader:
+            if frame_id > args.stopfrm:
+                return
+            if _live_due(args, frame_id):
+                _live_view(args, cfg, frame_id, obs)
+            yield frame_id, obs
+
+    return _interactive(args, cfg, frames(), normalized=False)
 
 
 IMAGE_EXTS = ("png", "jpg", "jpeg", "pgm", "bmp")
@@ -267,9 +331,6 @@ def cmd_track(args):
 
     from .frontend.matcher import StereoLineMatcher
 
-    if args.live_dir:
-        raise SystemExit("--live-dir needs the tracking views of viz.py, "
-                         "which the port does not have yet (P13)")
     cfg = _config(args)
     matcher = StereoLineMatcher(cfg.camera, device=args.device)
 
@@ -279,7 +340,11 @@ def cmd_track(args):
 
     def frames():
         for frame_id, pl_, pr_ in _stereo_frames(args):
-            yield frame_id, matcher.process(frame_id, *load(pl_, pr_))
+            images = load(pl_, pr_)
+            obs = matcher.process(frame_id, *images)
+            if _live_due(args, frame_id):
+                _live_view(args, cfg, frame_id, obs, images)
+            yield frame_id, obs
 
     if args.engine == "batch":
         print("warning: track runs the interactive engine, as the JAX CLI's "
@@ -325,6 +390,90 @@ def _add_common(p):
                    help="interactive engine: save a resumable checkpoint "
                         "into --out every N keyframes (0 = off)")
     p.add_argument("--out", default=None, help="output directory")
+    p.add_argument("--plot", action="store_true",
+                   help="write a top-down map.png into --out")
+    p.add_argument("--viz", action="store_true",
+                   help="write map.html into --out: a self-contained "
+                        "interactive 3D viewer (orbit/pan/zoom, top-down, "
+                        "keyframe playback)")
+    p.add_argument("--live-dir", default=None,
+                   help="interactive engine: write stereo tracking views "
+                        "(tracking_%%05d.png) here")
+    p.add_argument("--live-every", type=int, default=10,
+                   help="tracking-view cadence in frames (with --live-dir)")
+    p.add_argument("--profile-dir", default=None,
+                   help="record the command with torch.profiler and write "
+                        "a Chrome trace (trace.json) here")
+
+
+def cmd_view(args):
+    """``map.html`` from a finished run directory (trajectory.txt,
+    landmarks.txt and, where present, gt_trajectory.txt;
+    slslam_tpu/cli.py:426-453)."""
+    from .hostgeom import Pose, rodrigues
+    from .viz_interactive import export_interactive_map
+
+    run = args.run
+    rows = np.atleast_2d(np.loadtxt(os.path.join(run, args.trajectory)))
+    traj = [Pose(rodrigues(np.asarray(r[4:7], float)),
+                 np.array([-r[2], -r[3], r[1]])) for r in rows]
+    segs = np.zeros((0, 6))
+    lm_path = os.path.join(run, "landmarks.txt")
+    if os.path.exists(lm_path):
+        lm = np.atleast_2d(np.loadtxt(lm_path))
+        if lm.size:
+            # landmark rows are (z1 -y1 x1 z2 -y2 x2) (evalio/writers.py)
+            segs = np.stack([lm[:, 2], -lm[:, 1], lm[:, 0],
+                             lm[:, 5], -lm[:, 4], lm[:, 3]], axis=1)
+    gt = None
+    gt_path = os.path.join(run, "gt_trajectory.txt")
+    if os.path.exists(gt_path):
+        gt = np.atleast_2d(np.loadtxt(gt_path))
+    out = args.out or os.path.join(run, "map.html")
+    export_interactive_map(out, traj, segs, gt_rows=gt,
+                           title=os.path.basename(os.path.abspath(run)))
+    print(f"wrote {out}")
+    return out
+
+
+def cmd_gen(args):
+    """A rendered house sequence on disk (slslam_tpu/cli.py:456-471): the
+    renderer's line-track files %04d.txt and gt_trajectory.txt."""
+    from .config import CameraConfig
+    from .evalio.writers import trajectory_rows
+    from .sim import StereoLineRenderer, house_segments, wave_trajectory
+
+    poses = wave_trajectory(num_frames=args.frames)
+    ren = StereoLineRenderer(house_segments(), CameraConfig(),
+                             noise_px=args.noise_px, seed=args.rseed)
+    out = args.out or "house_seq"
+    ren.write_sequence(out, poses)
+    gt_rows = trajectory_rows([(T @ poses[0].inv()).inv() for T in poses])
+    np.savetxt(os.path.join(out, "gt_trajectory.txt"), gt_rows,
+               delimiter="\t")
+    print(f"wrote {args.frames} frames to {out}")
+    return out
+
+
+def _profiled(args):
+    """``args.fn(args)`` under torch.profiler (CPU activity, and CUDA
+    activity on the card), its Chrome trace written to
+    ``<--profile-dir>/trace.json`` (the JAX CLI's jax.profiler trace,
+    slslam_tpu/cli.py:85-86, 132-134)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        out = args.fn(args)
+        if cuda:
+            torch.cuda.synchronize()
+    os.makedirs(args.profile_dir, exist_ok=True)
+    path = os.path.join(args.profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"wrote the profile trace {path}", file=sys.stderr)
+    return out
 
 
 def main(argv=None):
@@ -333,6 +482,8 @@ def main(argv=None):
     p = sub.add_parser("sim", help="run on the simulated house world")
     p.add_argument("--frames", type=int, default=120)
     p.add_argument("--noise-px", type=float, default=0.5)
+    p.add_argument("--verbose", action="store_true",
+                   help="interactive engine: print progress every 20 frames")
     _add_common(p)
     p.set_defaults(fn=cmd_sim)
     p = sub.add_parser("run", help="replay line-track files from disk")
@@ -352,11 +503,26 @@ def main(argv=None):
                    choices=("indoor", "outdoor", "outdoor-long"),
                    default="indoor",
                    help="voctree parameter preset (voctree_bf.h:24-43)")
-    p.add_argument("--live-dir", default=None,
-                   help="not ported: the tracking views need viz.py (P13)")
     _add_common(p)
     p.set_defaults(fn=cmd_track)
+    p = sub.add_parser("view", help="build the interactive HTML map viewer "
+                       "from a run directory")
+    p.add_argument("--run", required=True, help="run output directory")
+    p.add_argument("--trajectory", default="trajectory.txt",
+                   help="trajectory file within --run (e.g. "
+                        "trajectory_refined.txt)")
+    p.add_argument("--out", default=None,
+                   help="output html path (default <run>/map.html)")
+    p.set_defaults(fn=cmd_view)
+    p = sub.add_parser("gen", help="write a rendered house sequence to disk")
+    p.add_argument("--frames", type=int, default=400)
+    p.add_argument("--noise-px", type=float, default=0.5)
+    p.add_argument("--rseed", type=int, default=4)
+    p.add_argument("--out", default=None)
+    p.set_defaults(fn=cmd_gen)
     args = ap.parse_args(argv)
+    if getattr(args, "profile_dir", None):
+        return _profiled(args)
     return args.fn(args)
 
 

@@ -53,6 +53,9 @@ PLAN_SHAPES = ((1600, 81), (1600, 20 * 81), (162, 4),
 # the refine's line-major evaluate
 K2_SHAPES = {"full": (20, 81, 1600), "cams": (4, 81, 162),
              "lines": (20, 81, 1600), "lm": (REFINE_C, REFINE_L, REFINE_O)}
+# k2_lm_case draws each line's cameras as a permutation up to this many
+# (lines x cameras); the map-scale cases past it take a band
+LM_CASE_PERMUTED = 10_000_000
 K1_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 K2_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
 K2_OUTPUTS = ("cost", "Hcc", "Hll", "gc", "gl", "W")
@@ -126,7 +129,9 @@ def k2_lm_case(dtype, device, C=REFINE_C, L=REFINE_L, kL=REFINE_KL,
     """Arguments of fused_eval on a line-major problem: L buckets of kL
     rows (rows of line l at [l kL, (l + 1) kL), obs_line = l), each
     observed by distinct cameras in random order (by random cameras where
-    kL > C), ``pad_frac`` of the rows (one at least) padding (w_valid 0,
+    kL > C; past LM_CASE_PERMUTED L C, as a map's band visibility, kL
+    consecutive cameras from a random start, so that the case builds in
+    seconds), ``pad_frac`` of the rows (one at least) padding (w_valid 0,
     zero observations, camera 0) at the end of their buckets; a fixed
     camera and a fixed line."""
     rng = np.random.default_rng(seed)
@@ -134,8 +139,13 @@ def k2_lm_case(dtype, device, C=REFINE_C, L=REFINE_L, kL=REFINE_KL,
     cam[1 % C, :3] = 0.0
     line = rng.standard_normal((L, 4)) * 0.2
     line[:, 3] = 0.3 + 0.5 * rng.random(L)
-    oc = np.stack([rng.permutation(C)[:kL] if kL <= C
-                   else rng.integers(0, C, kL) for _ in range(L)])
+    if kL > C or L * C <= LM_CASE_PERMUTED:
+        oc = np.stack([rng.permutation(C)[:kL] if kL <= C
+                       else rng.integers(0, C, kL) for _ in range(L)])
+    else:
+        band = (rng.integers(0, C, L)[:, None] + np.arange(kL)) % C
+        oc = np.take_along_axis(band, np.argsort(rng.random((L, kL)),
+                                                 axis=1), axis=1)
     n_pad = rng.multinomial(max(1, int(round(pad_frac * L * kL))),
                             np.ones(L) / L)
     valid = np.arange(kL)[None, :] < (kL - n_pad)[:, None]

@@ -9,14 +9,15 @@ slslam_tpu.frontend.detector and .matcher, slslam_tpu.sim.images, the
 vocabulary-tree presets, the native bindings of slslam_tpu.native, the
 numpy parts of
 slslam_tpu.engine.refine, slslam_tpu.ops.schur_cg and
-slslam_tpu.engine.batch_lc, and the numpy vocabulary training of
-slslam_tpu.loopclosure.voctree.  These tests hold each copy to its
+slslam_tpu.engine.batch_lc, the numpy vocabulary training of
+slslam_tpu.loopclosure.voctree, slslam_tpu.viz,
+slslam_tpu.viz_interactive and slslam_tpu.sim.street.  These tests hold each copy to its
 original on the same inputs (exact equality; the refine's and the packer's
 copies are held in tests/test_torch_refine.py and
 tests/test_torch_schur_cg.py, the loop closure's joint problem packing in
 tests/test_torch_batch_lc.py), and check that importing every module of
-the port, chip_smoke, profile_replay and tools/torch_frontend_bench.py
-loads neither jax nor slslam_tpu."""
+the port, chip_smoke, profile_replay and the port's tools
+(tools/torch_*.py) loads neither jax nor slslam_tpu."""
 
 import ast
 import dataclasses
@@ -45,6 +46,9 @@ from slslam_tpu_torch.evalio import writers as twriters
 from slslam_tpu_torch.loopclosure import voctree as tvoc
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the port's tools, each the counterpart of a JAX tool
+TOOLS = ["tools." + f[:-3] for f in sorted(os.listdir(os.path.join(
+    REPO, "tools"))) if f.startswith("torch_") and f.endswith(".py")]
 
 
 def test_slam_config_fields_identical():
@@ -377,6 +381,117 @@ def test_ransac_align_identical():
                              lines_b[:2], cnt_b[:2], cfg_t) is None
 
 
+def _poses(n=6, seed=11):
+    """World->camera poses along a wandering path with turns of up to 0.4
+    rad a step."""
+    rng = np.random.default_rng(seed)
+    out, R, c = [], np.eye(3), np.zeros(3)
+    for _ in range(n):
+        R = jhost.rodrigues(rng.standard_normal(3) * 0.2) @ R
+        c = c + rng.standard_normal(3) * 0.6
+        out.append(jhost.Pose(R, -R @ c))
+    return out
+
+
+def test_viz_identical(tmp_path):
+    """Both plots of slslam_tpu_torch.viz write the same PNG bytes as the
+    originals on the same inputs."""
+    from slslam_tpu import viz as jviz
+    from slslam_tpu_torch import viz as tviz
+    traj = [T.inv() for T in _poses()]
+    segs = np.random.default_rng(1).standard_normal((20, 6)) * 3
+    gt = jwriters.trajectory_rows(traj)
+    obs = {3: np.arange(8.0) * 40, 17: np.arange(8.0)[::-1] * 30}
+    img = np.random.default_rng(2).integers(0, 255, (48, 64)).astype(
+        np.uint8)
+    for mod, d in ((jviz, "j"), (tviz, "t")):
+        mod.plot_map(traj, segs, str(tmp_path / d / "map.png"),
+                     gt_trajectory=gt, title="m")
+        mod.plot_observations(None, None, obs, str(tmp_path / d / "o.png"),
+                              image_size=(64, 48), title="frame 3")
+        mod.plot_observations(img, img, obs, str(tmp_path / d / "i.png"))
+    for name in ("map.png", "o.png", "i.png"):
+        assert ((tmp_path / "t" / name).read_bytes()
+                == (tmp_path / "j" / name).read_bytes()), name
+
+
+def test_viz_interactive_identical(tmp_path):
+    from slslam_tpu import viz_interactive as jvi
+    from slslam_tpu_torch import viz_interactive as tvi
+    traj = [T.inv() for T in _poses()]
+    segs = np.random.default_rng(3).standard_normal((9, 6))
+    gt = jwriters.trajectory_rows(traj)
+    kw = dict(gt_rows=gt, first_seen=list(range(9)),
+              frame_stats=[{"obs": i, "iters": 2 * i} for i in range(6)],
+              title="village")
+    jvi.export_interactive_map(str(tmp_path / "j.html"), traj, segs, **kw)
+    tvi.export_interactive_map(str(tmp_path / "t.html"), traj, segs, **kw)
+    jvi.export_interactive_map(str(tmp_path / "j0.html"), traj[:1],
+                               np.zeros((0, 6)))
+    tvi.export_interactive_map(str(tmp_path / "t0.html"), traj[:1],
+                               np.zeros((0, 6)))
+    for a, b in (("j", "t"), ("j0", "t0")):
+        assert ((tmp_path / f"{b}.html").read_text()
+                == (tmp_path / f"{a}.html").read_text())
+
+
+def test_street_helpers_identical():
+    """The proxy world's helpers that read no file: the video-rate
+    interpolation, the corridor world with signs and banners, the
+    association outliers."""
+    from slslam_tpu.sim import street as jst
+    from slslam_tpu_torch.sim import street as tst
+    poses = _poses(8)
+    tposes = [thost.Pose(T.R, T.t) for T in poses]
+    a = jst.interpolate_poses(poses, max_rot=0.05, max_trans=0.25)
+    b = tst.interpolate_poses(tposes, max_rot=0.05, max_trans=0.25)
+    assert len(a) == len(b) > 3 * len(poses)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(y.R, x.R)
+        np.testing.assert_array_equal(y.t, x.t)
+    for kw in (dict(), dict(sign_density=1.0, banner_every=4, seed=3,
+                            return_arcs=True)):
+        ja = jst.corridor_segments(a, lateral=5.0, **kw)
+        tb = tst.corridor_segments(b, lateral=5.0, **kw)
+        for x, y in zip(ja if kw else [ja], tb if kw else [tb]):
+            assert len(x) > 20
+            np.testing.assert_array_equal(y, x)
+    assert jst.SEQUENCES == tst.SEQUENCES
+    obs = {i: np.full(8, float(i)) for i in range(30)}
+    ji, ti = jst.OutlierInjector(0.2, seed=5), tst.OutlierInjector(0.2, seed=5)
+    for _ in range(4):
+        x, y = ji(obs), ti(obs)
+        assert sorted(x) == sorted(y)
+        assert any(x[k][0] != k for k in x)
+        for k in x:
+            np.testing.assert_array_equal(y[k], x[k])
+
+
+def test_real_proxy_matches_jax():
+    """The proxy workload from the reference's trajectory files, and the
+    port's tool on it: needs the files."""
+    from slslam_tpu.sim import street as jst
+    from slslam_tpu_torch.sim import street as tst
+    from tools import torch_real_proxy
+    if not os.path.isdir(tst.REFERENCE_DIR):
+        pytest.skip("needs the reference's trajectory files in "
+                    f"{tst.REFERENCE_DIR}")
+    kw = dict(max_frames=20, noise_px=0.5, outlier_frac=0.05, seed=0,
+              interpolate=True, ref_dir=tst.REFERENCE_DIR)
+    ja = jst.real_proxy_workload("itbt3f", **kw)
+    tb = tst.real_proxy_workload("itbt3f", **kw)
+    for x, y in zip(ja[0], tb[0], strict=True):
+        assert sorted(x) == sorted(y)
+        for k in x:
+            np.testing.assert_array_equal(y[k], x[k])
+    np.testing.assert_array_equal(tb[2], ja[2])
+    assert tb[3] == ja[3]
+    out = torch_real_proxy.run_sequence("itbt3f", torch_real_proxy.parser()
+                                        .parse_args(["--max-frames", "20",
+                                                     "--device", "cpu"]))
+    assert out["ate_refined_m"] < 0.01 * out["path_len_m"]
+
+
 def _port_modules():
     mods = [slslam_tpu_torch.__name__]
     for info in pkgutil.walk_packages(slslam_tpu_torch.__path__,
@@ -388,8 +503,7 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """A fresh interpreter imports every module of the port, chip_smoke
     and profile_replay: jax and slslam_tpu stay out of sys.modules."""
-    mods = _port_modules() + ["chip_smoke", "profile_replay",
-                              "tools.torch_frontend_bench"]
+    mods = _port_modules() + ["chip_smoke", "profile_replay"] + TOOLS
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -412,7 +526,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "slslam_tpu_torch.frontend.detector",
               "slslam_tpu_torch.frontend.descriptor",
               "slslam_tpu_torch.frontend.matcher",
-              "slslam_tpu_torch.sim.images", "tools.torch_frontend_bench"):
+              "slslam_tpu_torch.sim.images", "slslam_tpu_torch.viz",
+              "slslam_tpu_torch.viz_interactive",
+              "slslam_tpu_torch.sim.street", "tools.torch_frontend_bench",
+              "tools.torch_large_map_bench", "tools.torch_param_study",
+              "tools.torch_scale_lc", "tools.torch_real_proxy"):
         assert m in mods, m
 
 
@@ -424,7 +542,8 @@ def _sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "profile_replay.py")
-    yield os.path.join(REPO, "tools", "torch_frontend_bench.py")
+    for m in TOOLS:
+        yield os.path.join(REPO, *m.split(".")) + ".py"
 
 
 def test_port_sources_name_no_jax_import():

@@ -110,6 +110,14 @@ def test_track_trains_a_vocabulary_jax_reads(seq, tmp_path):
 
 
 def test_track_live_dir_names_the_missing_slice(seq, tmp_path):
-    with pytest.raises(SystemExit, match="P13"):
-        tcli.main(_args(seq, tmp_path, "--device", "cpu", "--live-dir",
-                        str(tmp_path / "live")))
+    """--live-dir, ported with the views (it raised naming the slice
+    before): the JAX CLI's tracking views, ``tracking_%05d.png`` every
+    --live-every frames, drawn over the images."""
+    stats = tcli.main(_args(seq, tmp_path / "out", "--device", "cpu",
+                            "--live-dir", str(tmp_path / "live"),
+                            "--live-every", "2", "--stopfrm", "3"))
+    assert stats["num_keyframes"] >= 1
+    views = sorted(os.listdir(tmp_path / "live"))
+    assert views == ["tracking_00000.png", "tracking_00002.png"]
+    img = np.asarray(Image.open(tmp_path / "live" / views[0]).convert("L"))
+    assert img.std() > 10        # the images, not a blank canvas
