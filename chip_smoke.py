@@ -70,11 +70,13 @@ Phases, each printing one JSON line:
    polishes, the priors' and the PGO's block sums, the merged refine):
    against its twin in float32 and float64 at the tolerances of phases 1
    and 2, and timed in float32 as they time the house shapes;
-7. the interactive engine (``Slam``): (a) 400 house frames in f32 at the
-   reference gates, (b) the interactive bench, (c) f64 parity with the
-   CPU (orth; aid with window anchors), (d) interactive loop closure on
-   the village, (e) a checkpoint resumed bit for bit; then every kernel at
-   every shape phase 7 launched it at (role "interactive");
+7. the interactive engine (``Slam``): (a) INTERACTIVE_FRAMES house
+   frames in f32 at the reference gates (cut from 400 for the script's
+   time; phase 10 (a) runs the 400), (b) the interactive bench, (c) f64
+   parity with the CPU (orth; aid with window anchors), (d) interactive
+   loop closure on the village, (e) (a)'s checkpoint at CHECKPOINT_FRAME
+   resumed bit for bit; then every
+   kernel at every shape phase 7 launched it at (role "interactive");
 8. the image front-end: (a) on the first rendered house frames, the
    gradient maps on the card against the CPU (magnitude within FE_MAG_TOL,
    the angle within FE_ANGLE_TOL where it is read), the descriptors on
@@ -116,17 +118,40 @@ Phases, each printing one JSON line:
    least 7 closures, final ATE within the JAX package's band at that cut
    (LC9_ATE_MAX: at 340 frames the merged refine beats the odometry for
    some seeds only, JAX's own too); (e) the CLI:
-   ``gen`` 60 frames -> ``run --plot --viz --profile-dir`` -> ``view``,
-   ``sim --verbose --live-dir``, ``track --live-dir`` over phase 8 (c)'s
+   ``gen`` CLI_GEN_FRAMES frames -> ``run --plot --viz --profile-dir`` ->
+   ``view``, ``sim --verbose --live-dir`` over CLI_SIM_FRAMES frames,
+   ``track --live-dir`` over phase 8 (c)'s
    first CLI_TRACK_FRAMES frames: the PNGs, ``map.html`` embedding
    ``const D = {``, the progress lines, and K2 among the trace's CUDA
    kernels; then every kernel at every shape (c), (d) and (e) launched it
-   at that no earlier phase checked (role "phase9").
+   at that no earlier phase checked (role "phase9");
+10. the distributed layer (P12), DIST_WORLD ranks spawned on the one card
+   (``parallel.run_local_ranks``; gloo, since NCCL refuses two ranks on
+   one device), each importing neither jax nor slslam_tpu, every group
+   and collective under DIST_TIMEOUT_S: (a) ``Slam(SlamConfig())`` with
+   mesh_devices=DIST_WORLD over DIST_FRAMES house frames in f32 at the
+   reference gates (the slice's main path, counted in each rank up to its
+   last frame; the edge-sharded PGO run after it on the final graph is
+   counted apart and its shapes checked in (e)): keyframe
+   ATE <= 0.1 m, the ranks' trajectories, landmarks, keyframes, edges and
+   LM iterations equal bit for bit, K2 ``full`` launches == window LM
+   iterations on each rank, logged beside phase 7 (a) at its frames; (b)
+   in the same ranks, f64 over PARITY_FRAMES frames against phase 7 (c)'s
+   single-process run on the card: the same keyframes, edges and LM
+   iterations, trajectories within DIST_TRAJ_TOL; (c) NCCL at world 1 in
+   this process: sharded window solves at two line counts and a sharded
+   PGO against ``local_ba`` / ``pose_graph_opt`` on the same arrays
+   (within DIST_W1_RTOL, the same iterations) and the collective bytes
+   per LM iteration against their closed form in C; (d)
+   tools/torch_scaling_bench.py at world 1 and DIST_WORLD, its JSON
+   logged; then (e) every kernel at every shape (a)-(d) launched it at
+   that no earlier phase checked (role "dist").
 
 The launch counts of the kernels' record are those of the main-path runs
 (phase 4's replay, phase 5's refine, phase 6's loop closure run, phase 7
-(a), phase 8 (b) and (c), and phase 9's large map, study runs, scale LC
-run and CLI runs), each counted from zero (the split is under
+(a), phase 8 (b) and (c), phase 9's large map, study runs, scale LC run
+and CLI runs, and phase 10 (a) summed over its ranks), each counted from
+zero (the split is under
 ``launches_by_path``); each timed shape carries its own launches in
 those runs (``launches_at_shape``; role "lc": the loop-closure run's).
 Then a line with the card's name
@@ -155,12 +180,15 @@ K2_SOURCE = "slslam_tpu_torch/csrc/fused_eval.cu"
 JAC_HELPERS = ("lba_residual_jac_batch", "lba_residual_jac_cam_batch",
                "lba_residual_jac_line_batch")
 REFINE_ROUNDS = 3
-INTERACTIVE_FRAMES = 400
-CHECKPOINT_FRAME = 200
+# phase 7 (a): cut from 400 frames for the script's time, the 400 being
+# phase 10 (a)'s run; its checkpoint at frame 150, (e) resumes from there
+INTERACTIVE_FRAMES = 200
+CHECKPOINT_FRAME = 150
 PARITY_FRAMES = 40
 # the JAX package's keyframe ATE on phase 7 (a)'s run, in float64 on the CPU
-# (tools/jax_interactive_reference.py)
-JAX_INTERACTIVE_ATE_M = 0.0018133473159282338
+# (tools/jax_interactive_reference.py --frames 200: 19 keyframes, 95 window
+# LM iterations; at 400 frames 0.0018133 m)
+JAX_INTERACTIVE_ATE_M = 0.001762914405919682
 FRONTEND_FRAMES = 60
 FE_CHECK_FRAMES = 5
 TRACK_FRAMES = 40
@@ -205,8 +233,14 @@ LC9_FRAMES = 340
 # replay / post-pass seeds 4-7 the JAX package in f64 ends at 0.76-1.28
 # times its odometry ATE, 0.0127-0.0215 m (tools/jax_scale_lc_reference.py,
 # CPU); (d) is held to that band, its top with 5 % headroom, as phase 8 (c)
-# is held to JAX's band
+# is held to JAX's band.  (At 150 frames JAX's band is 0.0063-0.0161 m and
+# the card's f32 run ended at 0.0171 m: ROADMAP Queue 3.)
 LC9_ATE_MAX = 0.0226
+# phase 9 (e)'s gen -> run --plot --viz --profile-dir -> view and its sim,
+# cut from 60 and 40 frames for the script's time (the trace's export
+# grows with the window solves: 498 MB at 60 frames, 352 MB at 30)
+CLI_GEN_FRAMES = 12
+CLI_SIM_FRAMES = 20
 CLI_TRACK_FRAMES = 12
 # the front-end's device stages, card against CPU (phase 8 (a)): magnitude
 # (absolute, gray levels per pixel), level-line angle where the magnitude
@@ -214,6 +248,18 @@ CLI_TRACK_FRAMES = 12
 FE_MAG_TOL = 1e-4
 FE_ANGLE_TOL = 1e-5
 FE_DESC_TOL = 1e-6
+# phase 10: the distributed layer at world 2, two ranks sharing the card
+# over gloo (NCCL refuses two ranks on one device); (a) over the whole
+# 400 house frames
+DIST_WORLD = 2
+DIST_FRAMES = 400
+# each spawned rank group's limit, and the timeout of its collectives
+DIST_TIMEOUT_S = 300.0
+# (b): f64 world 2 against the single-process run on the card, the JAX
+# package's tolerance for its own mesh engine (tests/test_distributed.py:234)
+DIST_TRAJ_TOL = 1e-8
+# (c): NCCL at world 1 against local_ba / pose_graph_opt, f64, relative
+DIST_W1_RTOL = 1e-12
 
 
 def log(obj):
@@ -994,8 +1040,8 @@ def phase7(dev):
     f32 (the main path, counted), (b) the interactive bench workload, (c)
     f64 parity CUDA vs CPU (orth, then aid with window anchors), (d)
     interactive loop closure on the village, (e) the checkpoint round trip
-    of (a).  Returns (a)'s launches and every phase 7 run's launch
-    shapes."""
+    of (a).  Returns (a)'s launches, every phase 7 run's launch shapes,
+    and (a)'s and (c) orth's CUDA runs for phase 10 (a) and (b)."""
     import dataclasses
     import os
     import numpy as np
@@ -1011,7 +1057,8 @@ def phase7(dev):
     shapes7 = {}
     t_phase = time.perf_counter()
 
-    # (a) the house, 400 frames, render seed 4, 0.2 px, the reference gates
+    # (a) the house, INTERACTIVE_FRAMES frames, render seed 4, 0.2 px, the
+    # reference gates
     cfg = dataclasses.replace(SlamConfig(), compute_dtype="float32")
     frames, poses = bench.workload(cfg, INTERACTIVE_FRAMES, 4)
     _run_slam(Slam(cfg, device=dev), frames[:WARMUP_FRAMES])   # warm-up
@@ -1046,8 +1093,9 @@ def phase7(dev):
     stats = slam.post_processing()
     by_variant = variant_launches(launches)
     jac_cuda = sum(calls[k] for k in JAC_HELPERS)
-    log({"phase": 7, "run": "(a) house, 400 frames, float32, reference "
-         "gates", "kf": len(kf), "landmarks": stats["num_landmarks"],
+    log({"phase": 7, "run": f"(a) house, {INTERACTIVE_FRAMES} frames, "
+         "float32, reference gates", "kf": len(kf),
+         "landmarks": stats["num_landmarks"],
          "wall_s": wall, "kf_per_s": len(kf) / wall,
          "frames_per_s": len(frames) / wall, "ate_kf_m": ate_a,
          "ate_kf_m_jax_f64_cpu": JAX_INTERACTIVE_ATE_M,
@@ -1120,6 +1168,10 @@ def phase7(dev):
         if not dtraj <= 1e-6:
             raise AssertionError(f"phase 7 (c) {name}: trajectories differ "
                                  f"by {dtraj} m")
+        if name == "orth":
+            ref_b = {"kf": kg, "edges": sorted(sg.state.edge_set),
+                     "iters": sg.sum_num_iteration,
+                     "traj": sg.trajectory()}
     log({"phase": 7, "run": f"(c) f64 parity, {PARITY_FRAMES} house "
          "frames, CUDA vs CPU", **parity})
 
@@ -1172,7 +1224,9 @@ def phase7(dev):
     if not same:
         raise AssertionError("phase 7 (e): the resumed run differs from "
                              "the straight run")
-    return launches, shapes7
+    ref_a = {"kf": len(kf), "window_lm_iterations": slam.sum_num_iteration,
+             "ate_kf_m": ate_a, "wall_s": wall}
+    return launches, shapes7, {"a": ref_a, "b": ref_b}
 
 
 def _load_tool(name):
@@ -1528,7 +1582,7 @@ def phase9a(dev, rec, lmb):
         raise AssertionError(f"phase 9 (a) failed: {failed} {finite}")
     shape_kernels(dev, rec, launches, shapes, "large_map", 9,
                   (out32["num_cams"], out32["num_lines"], out32["num_obs"]))
-    return launches
+    return launches, shapes
 
 
 def phase9b(dev, lmb):
@@ -1670,7 +1724,8 @@ def phase9e(dev):
         def p(*parts):
             return os.path.join(tmp, *parts)
 
-        cli.main(["gen", "--frames", "60", "--out", p("seq")])
+        cli.main(["gen", "--frames", str(CLI_GEN_FRAMES), "--out",
+                  p("seq")])
         st = counted("run", ["run", "--obs-dir", p("seq"), "--device",
                              str(dev), "--plot", "--viz", "--profile-dir",
                              p("prof"), "--out", p("run")])
@@ -1682,7 +1737,8 @@ def phase9e(dev):
         cli.main(["view", "--run", p("run"), "--out", p("view.html")])
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
-            st = counted("sim", ["sim", "--frames", "40", "--verbose",
+            st = counted("sim", ["sim", "--frames", str(CLI_SIM_FRAMES),
+                                 "--verbose",
                                  "--device", str(dev), "--live-dir",
                                  p("live_sim"), "--live-every", "10",
                                  "--out", p("sim")])
@@ -1715,7 +1771,7 @@ def phase9e(dev):
             "view map.html embeds const D = {": html_ok(p("view.html")),
             "sim tracking views every 10 frames": sorted(os.listdir(
                 p("live_sim"))) == [f"tracking_{i:05d}.png"
-                                    for i in range(0, 40, 10)],
+                                    for i in range(0, CLI_SIM_FRAMES, 10)],
             "track tracking views every 10 frames": sorted(os.listdir(
                 p("live_track"))) == [f"tracking_{i:05d}.png" for i in
                                       range(0, CLI_TRACK_FRAMES, 10)],
@@ -1736,8 +1792,9 @@ def phase9e(dev):
 
 def phase9(dev, rec, checked):
     """P13: the tools and the CLI's last commands, (a)-(e).  Returns the
-    launches of each counted path; checks every kernel at every shape the
-    paths launched it at that no earlier phase checked."""
+    launches of each counted path and every shape they launched; checks
+    every kernel at every shape the paths launched it at that no earlier
+    phase checked."""
     t_phase = time.perf_counter()
     lmb = _load_tool("torch_large_map_bench")
     phase9b(dev, lmb)
@@ -1751,10 +1808,339 @@ def phase9(dev, rec, checked):
                                     if n == k) for k in paths["cli"]},
                   new, "phase9", 9)
     # the map-scale run last: it holds the most device memory
-    paths["large_map"] = phase9a(dev, rec, lmb)
+    paths["large_map"], shapes_map = phase9a(dev, rec, lmb)
     log({"phase": 9, "phase_9_s": time.perf_counter() - t_phase,
          "new_shapes_checked": len(new), "shapes_launched": len(shapes9)})
-    return paths
+    return paths, set(shapes9) | set(shapes_map)
+
+
+def _dist_slam_rank(rank, world, dev, runs):
+    """Phase 10 (a) and (b)'s rank: ``_dist_slam_run`` of each (cfg,
+    n_frames, hooked) of ``runs`` in turn, in one spawned group."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return [_dist_slam_run(world, dev, *run) for run in runs]
+
+
+def _dist_slam_run(world, dev, cfg, n_frames, hooked):
+    """``Slam`` with mesh_devices=world over the house's first
+    ``n_frames`` (render seed 4, 0.2 px), the kernel and collective counts
+    from zero just before the run; RANSAC noise from ``_cpu_gumbel`` where
+    ``hooked``, else the engine's own generator.  Also the keyframes and
+    window LM iterations after phase 7 (a)'s INTERACTIVE_FRAMES frames,
+    and the trajectory after one ``pose_optimization`` of the final graph
+    (the house run triggers none: this one runs the edge-sharded PGO, its
+    edges padded to the world size).  The run's launches and shapes are
+    read before that PGO, whose own are counted apart (``pgo_launches``,
+    ``pgo_shapes``)."""
+    import dataclasses
+    import torch
+    from slslam_tpu_torch import bench
+    from slslam_tpu_torch.engine import Slam
+    from slslam_tpu_torch.ops import kernels
+    from slslam_tpu_torch.parallel import comm_counts, reset_comm_counts
+    frames, _ = bench.workload(cfg, n_frames, 4)
+    slam = Slam(dataclasses.replace(cfg, mesh_devices=world), device=dev,
+                gumbel_hook=_cpu_gumbel() if hooked else None)
+    kernels.reset_launch_counts()
+    reset_comm_counts()
+    at_7a = {}
+
+    def note(i):
+        if i == INTERACTIVE_FRAMES - 1:
+            at_7a.update(kf=len(slam.state.kfs),
+                         window_lm_iterations=slam.sum_num_iteration)
+
+    t0 = time.perf_counter()
+    kf = _run_slam(slam, frames, on_frame=note)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches, shapes = (dict(kernels.launch_counts),
+                        dict(kernels.launch_shapes))
+    comm = comm_counts()
+    traj = slam.trajectory()
+    kernels.reset_launch_counts()
+    slam.pose_optimization()
+    return {"kf": kf, "traj": traj, "traj_pgo": slam.trajectory(),
+            "lms": {f: (lm.line.copy(), lm.tt.copy())
+                    for f, lm in slam.state.lms.items()},
+            "edges": sorted(slam.state.edge_set),
+            "iters": slam.sum_num_iteration, "stats": slam.post_processing(),
+            "launches": launches, "shapes": shapes, "comm": comm,
+            "pgo_launches": dict(kernels.launch_counts),
+            "pgo_shapes": dict(kernels.launch_shapes),
+            "wall_s": wall, "device": str(dev),
+            "at_phase_7a_frames": at_7a,
+            "foreign_modules": sorted(
+                m for m in sys.modules if m.split(".")[0] in
+                ("jax", "slslam_tpu"))}
+
+
+def _dist_ranks(runs):
+    """Each run of ``runs`` on DIST_WORLD spawned ranks sharing the card:
+    ([every rank's result] for each run, the group's wall)."""
+    from slslam_tpu_torch.parallel import run_local_ranks
+    t0 = time.perf_counter()
+    res = run_local_ranks(_dist_slam_rank, DIST_WORLD, args=(runs,),
+                          device="cuda", timeout_s=DIST_TIMEOUT_S)
+    return list(zip(*res)), time.perf_counter() - t0
+
+
+def _ranks_equal(res):
+    import numpy as np
+    a = res[0]
+    for b in res[1:]:
+        if not (a["kf"] == b["kf"] and a["edges"] == b["edges"]
+                and a["iters"] == b["iters"]
+                and _poses_equal(a["traj"], b["traj"])
+                and _poses_equal(a["traj_pgo"], b["traj_pgo"])
+                and a["lms"].keys() == b["lms"].keys()
+                and all(np.array_equal(x, y) for f in a["lms"]
+                        for x, y in zip(a["lms"][f], b["lms"][f]))):
+            return False
+    return True
+
+
+def _summed(res, key):
+    out = {}
+    for r in res:
+        _merge_shapes(out, r[key])
+    return out
+
+
+def _ring_pgo(V=32, E_pad=64, drift=0.05, seed=0):
+    """tests/test_distributed.py's ring (V poses around a circle, the
+    chain and one loop edge, drifted starts, padded edges), built with the
+    port's hostgeom: (poses, ei, ej, ctr, e_valid, pose_free)."""
+    import numpy as np
+    from slslam_tpu_torch.hostgeom import Pose
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(V) / V
+    gt = np.stack([np.array([0.0, a, 0.0, np.sin(a) * 3, 0.0,
+                             np.cos(a) * 3]) for a in ang])
+    ei = np.zeros(E_pad, np.int32)
+    ej = np.zeros(E_pad, np.int32)
+    ctr = np.zeros((E_pad, 6))
+    ev = np.zeros(E_pad, bool)
+    for k, (i, j) in enumerate([(i, i + 1) for i in range(V - 1)]
+                               + [(V - 1, 0)]):
+        ei[k], ej[k], ev[k] = i, j, True
+        ctr[k] = (Pose.from_wt(gt[j]) @ Pose.from_wt(gt[i]).inv()).wt()
+    poses = gt + rng.standard_normal(gt.shape) * drift
+    poses[0] = gt[0]
+    free = np.ones(V, bool)
+    free[0] = False
+    return poses, ei, ej, ctr, ev, free
+
+
+def _rel(a, b):
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def phase10c(dev, tsb):
+    """(c) NCCL at world 1 in this process: sharded window solves (at two
+    line counts; the scaling tool's random problem) and one sharded PGO
+    against ``local_ba`` and ``pose_graph_opt`` on the card, on the same
+    arrays, f64; the collective bytes per LM iteration against the closed
+    form 8 (36 C^2 + 48 C + 5).  Returns the launches by shape."""
+    import datetime
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from slslam_tpu_torch.ops import kernels
+    from slslam_tpu_torch.ops.pose_graph import pose_graph_opt
+    from slslam_tpu_torch.ops.schur_ba import local_ba
+    from slslam_tpu_torch.parallel import (comm_counts, dist_local_ba_lines,
+                                           dist_pose_graph_opt,
+                                           partition_by_line,
+                                           reset_comm_counts)
+    from slslam_tpu_torch.parallel.multihost import backend_for
+    if backend_for(dev, 1) != "nccl":
+        raise AssertionError("phase 10 (c): the backend rule does not pick "
+                             "NCCL for one rank on one card")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(tmp, "store"),
+        world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    out, checks = {}, {}
+    kernels.reset_launch_counts()
+    try:
+        C = 20
+        per_iter = 8 * (36 * C * C + 48 * C + 5)
+
+        def f(x):
+            x = torch.as_tensor(x, device=dev)
+            return x.double() if x.is_floating_point() else x
+
+        for L, O in ((81, 1600), (324, 6400)):
+            cam0, orth0, obs, oc, ol, ov, cf, lf, bl, hd = \
+                tsb._example_ba_problem(C=C, L=L, O=O)
+            # world 1's shard: the problem re-padded; both solves take it
+            lo, lfs, ob, ocs, ols, ovs, _ = partition_by_line(
+                orth0, lf, obs, oc, ol, ov, 1)
+            shard = [f(a[0]) for a in (lo, ob, ocs, ols, ovs, lfs)]
+            cam_s, line_s, st_s = local_ba(f(cam0), *shard[:5], f(cf),
+                                           shard[5], bl, hd)
+            reset_comm_counts()
+            cam_d, line_d, st_d = dist_local_ba_lines(
+                None, f(cam0), *shard[:5], f(cf), shard[5], bl, hd)
+            counts = comm_counts()
+            it = int(st_d.iterations)
+            key = f"window C={C} L={L} O={O}"
+            out[key] = {
+                "lm_iterations": [it, int(st_s.iterations)],
+                "cam_rel_gap": _rel(cam_d.cpu(), cam_s.cpu()),
+                "line_rel_gap": _rel(line_d.cpu(), line_s.cpu()),
+                "bytes_per_lm_iteration": (counts["bytes"] - 8) / max(it, 1),
+                "collective_calls": counts["calls"],
+                "collective_ms": counts["seconds"] * 1e3}
+            checks[f"{key}: same LM iterations"] = it == int(st_s.iterations)
+            checks[f"{key}: within {DIST_W1_RTOL}"] = max(
+                out[key]["cam_rel_gap"], out[key]["line_rel_gap"]) \
+                <= DIST_W1_RTOL
+            checks[f"{key}: bytes per LM iteration == 8 (36 C^2 + 48 C + "
+                   "5)"] = counts["bytes"] == 8 + it * per_iter and it > 0
+        pgo = [f(a) for a in _ring_pgo()]
+        p_s, s_s = pose_graph_opt(*pgo, max_iters=10)
+        p_d, s_d = dist_pose_graph_opt(None, *pgo, max_iters=10)
+        out["pgo ring V=32"] = {
+            "iterations": [int(s_d.iterations), int(s_s.iterations)],
+            "rel_gap": _rel(p_d.cpu(), p_s.cpu())}
+        checks["PGO: same iterations"] = int(s_d.iterations) == int(
+            s_s.iterations)
+        checks[f"PGO: within {DIST_W1_RTOL}"] = \
+            out["pgo ring V=32"]["rel_gap"] <= DIST_W1_RTOL
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize(dev)
+    log({"phase": 10, "run": "(c) NCCL at world 1, f64: sharded window "
+         "solves and PGO against the single solves", "backend": backend,
+         **out})
+    checks["the group ran NCCL"] = backend == "nccl"
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 10 (c) failed: {failed}")
+    return dict(kernels.launch_shapes)
+
+
+def phase10(dev, rec, checked, refs7):
+    """P12, the distributed layer: (a) ``Slam(SlamConfig())`` over the
+    house's DIST_FRAMES frames in f32 at world 2 (the slice's main path,
+    counted),
+    (b) f64 world 2 against phase 7 (c)'s single-process run on the card,
+    (c) NCCL at world 1, (d) tools/torch_scaling_bench.py at world 1 and
+    2; then (e) every kernel at every shape (a)-(d) launched it at that no
+    earlier phase checked (role "dist").  Returns (a)'s launches, summed
+    over its ranks."""
+    import dataclasses
+    import importlib
+    import numpy as np
+    from slslam_tpu_torch import bench
+    from slslam_tpu_torch.config import SlamConfig
+    t_phase = time.perf_counter()
+    shapes10 = {}
+
+    # (a) the house, DIST_FRAMES frames, f32, the reference gates, then
+    # (b) f64 over PARITY_FRAMES, in one group of ranks
+    cfg = dataclasses.replace(SlamConfig(), compute_dtype="float32")
+    cfg64 = dataclasses.replace(SlamConfig(), compute_dtype="float64")
+    (res, res_b), wall = _dist_ranks([(cfg, DIST_FRAMES, False),
+                                      (cfg64, PARITY_FRAMES, True)])
+    a = res[0]
+    _, poses = bench.workload(cfg, DIST_FRAMES, 4)
+    ate = bench.ate(a["traj"], [poses[i] for i in a["kf"]])
+    launches = _summed(res, "launches")
+    for r in res + res_b:
+        _merge_shapes(shapes10, r["shapes"])
+        _merge_shapes(shapes10, r["pgo_shapes"])
+    log({"phase": 10, "run": f"(a) house, {DIST_FRAMES} frames, "
+         f"float32, reference gates, world {DIST_WORLD} on one card",
+         "kf": len(a["kf"]), "landmarks": a["stats"]["num_landmarks"],
+         "window_lm_iterations": a["iters"], "ate_kf_m": ate,
+         "phase_7a": refs7["a"],
+         f"after {INTERACTIVE_FRAMES} frames": a["at_phase_7a_frames"],
+         "rank_walls_s": [r["wall_s"] for r in res],
+         "spawned_group_s (a) and (b)": wall,
+         "devices": [r["device"] for r in res],
+         "dist_backend": a["stats"].get("dist_backend"),
+         "collectives": [r["comm"] for r in res],
+         "launches_by_rank": [r["launches"] for r in res],
+         "sharded_pgo_launches_by_rank (not counted)": [
+             r["pgo_launches"] for r in res]})
+    checks = {
+        "keyframe ATE <= 0.1 m": ate <= 0.1,
+        ">= 10 keyframes": len(a["kf"]) >= 10,
+        "ranks equal bit for bit (trajectory before and after the PGO, "
+        "landmarks, keyframes, edges, LM iterations)": _ranks_equal(res),
+        "one pose-graph solve": a["stats"]["num_pose_graph_runs"] == 1,
+        "gloo on a shared card": a["stats"].get("dist_backend") == "gloo",
+        "finite poses": all(np.all(np.isfinite(T.t)) for T in a["traj"]),
+        "K2 full launches == window LM iterations on each rank": all(
+            r["launches"]["fused_eval/full"] == r["iters"] > 0 for r in res),
+        "K2 lines and cams, K1 and the plan launched": all(
+            launches[k] > 0 for k in ("fused_eval/lines", "fused_eval/cams",
+                                      "segment_sum", "segment_plan")),
+        "no lm launch": launches["fused_eval/lm"] == 0,
+        "the ranks loaded neither jax nor slslam_tpu": not any(
+            r["foreign_modules"] for r in res),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 10 (a) failed: {failed}")
+
+    # (b) f64, world 2 against the single-process run on the card
+    res = res_b
+    b, ref = res[0], refs7["b"]
+    dtraj = max(float(np.linalg.norm(x.t - y.t))
+                for x, y in zip(b["traj"], ref["traj"], strict=True))
+    log({"phase": 10, "run": f"(b) f64, {PARITY_FRAMES} house frames, world "
+         f"{DIST_WORLD} vs the single-process run on the card (phase 7 (c))",
+         "kf": len(b["kf"]), "lm_iterations": [b["iters"], ref["iters"]],
+         "edges": len(b["edges"]), "max_traj_diff_m": dtraj,
+         "rank_walls_s": [r["wall_s"] for r in res]})
+    checks = {"same keyframes, edges and LM iterations":
+              b["kf"] == ref["kf"] and b["edges"] == ref["edges"]
+              and b["iters"] == ref["iters"],
+              f"trajectories within {DIST_TRAJ_TOL} m": dtraj
+              <= DIST_TRAJ_TOL,
+              "ranks equal bit for bit": _ranks_equal(res)}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 10 (b) failed: {failed}")
+
+    # (c) NCCL at world 1, in this process
+    tsb = importlib.import_module("tools.torch_scaling_bench")
+    _merge_shapes(shapes10, phase10c(dev, tsb))
+
+    # (d) the scaling tool at world 1 and 2 on the card
+    t0 = time.perf_counter()
+    rows, summary, shapes = tsb.run(max_world=DIST_WORLD, device="cuda",
+                                    timeout_s=DIST_TIMEOUT_S)
+    _merge_shapes(shapes10, shapes)
+    log({"phase": 10, "run": "(d) tools/torch_scaling_bench.py, world 1 "
+         f"and {DIST_WORLD} on the card", "rows": rows, "summary": summary,
+         "run_s": time.perf_counter() - t0})
+    if not summary["collective_bytes_per_lm_iteration_constant"]:
+        raise AssertionError("phase 10 (d): the bytes per LM iteration "
+                             "change with the world size")
+
+    # (e) every kernel at every new shape
+    new = {k: v for k, v in shapes10.items() if k not in checked}
+    shape_kernels(dev, rec, {k: sum(v for (n, _), v in new.items()
+                                    if n == k) for k in launches},
+                  new, "dist", 10)
+    log({"phase": 10, "phase_10_s": time.perf_counter() - t_phase,
+         "new_shapes_checked": len(new), "shapes_launched": len(shapes10)})
+    return launches
 
 
 def main():
@@ -1789,7 +2175,7 @@ def main():
         rec[name]["launches"] += n
         rec[name]["launches_by_path"]["lc"] = n
     shape_kernels(dev, rec, launches6, shapes6, "lc", 6, refine_cl_o)
-    launches7, shapes7 = phase7(dev)
+    launches7, shapes7, refs7 = phase7(dev)
     for name, n in launches7.items():
         rec[name]["launches"] += n
         rec[name]["launches_by_path"]["interactive"] = n
@@ -1809,10 +2195,15 @@ def main():
                | {("segment_sum", s) for s in kc.K1_SHAPES}
                | {(f"fused_eval/{v}", s) for v, s in kc.K2_SHAPES.items()}
                | set(shapes6) | set(shapes7) | set(shapes8))
-    for path, launches9 in phase9(dev, rec, checked).items():
+    paths9, shapes9 = phase9(dev, rec, checked)
+    for path, launches9 in paths9.items():
         for name, n in launches9.items():
             rec[name]["launches"] += n
             rec[name]["launches_by_path"][path] = n
+    launches10 = phase10(dev, rec, checked | shapes9, refs7)
+    for name, n in launches10.items():
+        rec[name]["launches"] += n
+        rec[name]["launches_by_path"]["dist"] = n
     if "jax" in sys.modules or any(m == "slslam_tpu" or
                                    m.startswith("slslam_tpu.")
                                    for m in sys.modules):

@@ -1,12 +1,13 @@
 """slslam_tpu_torch: the batch replay engine, global refine, deferred loop
-closure, interactive engine and image front-end of slslam_tpu in PyTorch +
-CUDA.
+closure, interactive engine, image front-end and distributed layer of
+slslam_tpu in PyTorch + CUDA.
 
 A port of the device-resident batch engine (``slslam_tpu.engine.batch``),
 of the post-replay global refine (``slslam_tpu.engine.refine``), of
 loop-closure mode (``slslam_tpu.engine.batch_lc``, ``loopclosure``,
-``ops.pose_graph``), of the interactive engine (``engine.slam``) and of
-the image front-end (``frontend``: detector, descriptor, matcher) to
+``ops.pose_graph``), of the interactive engine (``engine.slam``), of
+the image front-end (``frontend``: detector, descriptor, matcher) and of
+the distributed layer (``parallel``, over ``torch.distributed``) to
 PyTorch, with the BA evaluates and the index
 reductions written by hand in CUDA C++ for Hopper (``csrc/``, bound through
 ctypes in ``ops/kernels.py``), and the bench entry ``python3 -m

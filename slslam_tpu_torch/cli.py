@@ -36,8 +36,18 @@ writes a Chrome trace there; ``sim --verbose`` prints the engine's
 progress to stderr.  ``gen`` writes a rendered house sequence (line-track
 files and ``gt_trajectory.txt``) that ``run --obs-dir`` reads, and
 ``view`` builds ``map.html`` from a finished run directory.  ``--device``
-defaults to ``cuda``; ``--device cpu`` runs the plain twins.  The JAX
-CLI's mesh and multihost flags (P12) are not ported.
+defaults to ``cuda``; ``--device cpu`` runs the plain twins.
+
+``--mesh-devices N`` runs the interactive engine's window BA line-sharded
+and its PGO edge-sharded over N ranks (``parallel/``), one process each,
+started by torchrun (``torchrun --nproc-per-node N -m slslam_tpu_torch.cli
+sim ... --mesh-devices N``) or by ``--multihost --coordinator HOST:PORT
+--num-processes N --process-id I`` in each; every rank runs on
+``cuda:{local rank % card count}`` (or the CPU with ``--device cpu``), the
+group on NCCL when each rank has a card of its own and on gloo otherwise
+(``parallel/multihost.py``).  Only the primary rank (rank 0) writes
+outputs, tracking views, checkpoints, plots, traces and a trained
+vocabulary.
 """
 
 from __future__ import annotations
@@ -57,7 +67,8 @@ def _config(args):
     return dataclasses.replace(
         SlamConfig(), ba_window_size=args.ba_window_size,
         max_num_iter=args.max_num_iter, rseed=args.rseed,
-        robust=args.robust, compute_dtype=args.dtype)
+        robust=args.robust, compute_dtype=args.dtype,
+        mesh_devices=args.mesh_devices)
 
 
 def _write_stats(out, stats):
@@ -87,8 +98,14 @@ def _write_maps(args, trajectory, segments, gt_rows, viz_trajectory=None):
                                gt_rows=gt_rows)
 
 
+def _primary():
+    from .parallel.multihost import is_primary
+    return is_primary()
+
+
 def _live_due(args, frame_id):
-    return args.live_dir is not None and frame_id % args.live_every == 0
+    return (args.live_dir is not None and frame_id % args.live_every == 0
+            and _primary())
 
 
 def _live_view(args, cfg, frame_id, obs, images=(None, None)):
@@ -143,7 +160,7 @@ def _batch(args, cfg, frames, poses_gt=None, frame_ids=None):
         if poses_gt is not None:
             stats["refine_ate_m"] = ate(ref.trajectory,
                                         [poses_gt[i] for i in kf_idx])
-    if args.out:
+    if args.out and _primary():
         os.makedirs(args.out, exist_ok=True)
         write_trajectory(os.path.join(args.out, "trajectory.txt"),
                          res.trajectory)
@@ -191,7 +208,7 @@ def _interactive(args, cfg, frames, poses_gt=None, normalized=True,
         n += 1
         if slam.process_frame(obs, frame_id, normalized=normalized):
             kf_frames.append(frame_id)
-            if (args.checkpoint_every and args.out
+            if (args.checkpoint_every and args.out and _primary()
                     and len(kf_frames) % args.checkpoint_every == 0):
                 os.makedirs(args.out, exist_ok=True)
                 save_checkpoint(slam, os.path.join(args.out,
@@ -213,7 +230,7 @@ def _interactive(args, cfg, frames, poses_gt=None, normalized=True,
         gt_rows = _gt_rows(poses_gt, kf_frames)
         est = trajectory_rows(slam.trajectory())
         stats["ate_m"] = ate_position_error(est, gt_rows)
-    if args.out:
+    if args.out and _primary():
         os.makedirs(args.out, exist_ok=True)
         slam.save_trajectory(os.path.join(args.out, "trajectory.txt"))
         slam.save_landmarks(os.path.join(args.out, "landmarks.txt"))
@@ -305,7 +322,8 @@ def _vocab_params(preset):
 def _train_vocabulary(args, cfg, load):
     """A vocabulary from the sequence's own descriptors (slslam_tpu/cli.py:
     377-392): the tracks alive after each frame until the bank holds more
-    than 200 descriptors, written to --vocab."""
+    than 200 descriptors, written to --vocab by the primary rank; returns
+    the tree (every rank trains the same one)."""
     from .frontend.matcher import StereoLineMatcher
     from .loopclosure import VocTree, build_vocabulary
     print(f"training vocabulary -> {args.vocab}", file=sys.stderr)
@@ -318,8 +336,11 @@ def _train_vocabulary(args, cfg, load):
         bank.extend(t.desc for t in pre.tracks.values())
     pre.close()
     vocab = build_vocabulary(np.asarray(bank, np.float32))
-    VocTree(vocab, _vocab_params(args.vocab_preset),
-            device=args.device).save(args.vocab)
+    tree = VocTree(vocab, _vocab_params(args.vocab_preset),
+                   device=args.device)
+    if _primary():
+        tree.save(args.vocab)
+    return tree
 
 
 def cmd_track(args):
@@ -353,10 +374,12 @@ def cmd_track(args):
         slam_setup = None
         if args.vocab:
             from .loopclosure import PlaceRecognizer, VocTree
-            if not os.path.exists(args.vocab):
-                _train_vocabulary(args, cfg, load)
-            tree = VocTree.load(args.vocab, _vocab_params(args.vocab_preset),
-                                device=args.device)
+            if os.path.exists(args.vocab):
+                tree = VocTree.load(args.vocab,
+                                    _vocab_params(args.vocab_preset),
+                                    device=args.device)
+            else:
+                tree = _train_vocabulary(args, cfg, load)
 
             def slam_setup(slam):
                 slam.place_recognizer = PlaceRecognizer(tree)
@@ -404,6 +427,18 @@ def _add_common(p):
     p.add_argument("--profile-dir", default=None,
                    help="record the command with torch.profiler and write "
                         "a Chrome trace (trace.json) here")
+    p.add_argument("--mesh-devices", type=int, default=0,
+                   help="interactive engine: run the window BA and the PGO "
+                        "sharded over this many ranks (the process group's "
+                        "world size)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a process group before running: with "
+                        "--coordinator/--num-processes/--process-id, or "
+                        "from torchrun's environment")
+    p.add_argument("--coordinator", default=None,
+                   help="HOST:PORT of rank 0 (with --multihost)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
 
 
 def cmd_view(args):
@@ -469,6 +504,8 @@ def _profiled(args):
         out = args.fn(args)
         if cuda:
             torch.cuda.synchronize()
+    if not _primary():
+        return out
     os.makedirs(args.profile_dir, exist_ok=True)
     path = os.path.join(args.profile_dir, "trace.json")
     prof.export_chrome_trace(path)
@@ -521,9 +558,32 @@ def main(argv=None):
     p.add_argument("--out", default=None)
     p.set_defaults(fn=cmd_gen)
     args = ap.parse_args(argv)
-    if getattr(args, "profile_dir", None):
-        return _profiled(args)
-    return args.fn(args)
+    started = _join_group(args)
+    try:
+        if getattr(args, "profile_dir", None):
+            return _profiled(args)
+        return args.fn(args)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _join_group(args):
+    """With --multihost, or under torchrun (its WORLD_SIZE and RANK set)
+    with --mesh-devices > 1, start this rank's process group and move
+    --device to the rank's own (slslam_tpu/cli.py:76-82).  Returns whether
+    it started one."""
+    torchrun = "WORLD_SIZE" in os.environ and "RANK" in os.environ
+    if not (getattr(args, "multihost", False)
+            or (getattr(args, "mesh_devices", 0) > 1 and torchrun)):
+        return False
+    from .parallel.multihost import initialize_multihost
+    info = initialize_multihost(args.coordinator, args.num_processes,
+                                args.process_id, device=args.device)
+    args.device = info["device"]
+    print(f"multihost: {info}", file=sys.stderr)
+    return True
 
 
 if __name__ == "__main__":

@@ -25,7 +25,17 @@ slam.py:288).  ``cfg.ba_init_jitter`` takes JAX's numpy stream exactly:
 
 The engine runs on ``device`` (default the card; ``"cpu"`` runs the plain
 twins, as the tests do) and never falls back: a CUDA request without CUDA
-raises.  ``mesh_devices > 1`` (the sharded solves) is not ported.
+raises.
+
+``cfg.mesh_devices > 1`` is the mesh path (slslam_tpu/engine/slam.py:
+104-114, 568-608, 929-945): every rank of an initialized
+``torch.distributed`` process group of that world size runs the same
+engine on the same frames, the window BA runs line-sharded
+(``parallel.dist_local_ba_lines``; the staged lines-GN first, on the whole
+problem) and the PGO edge-sharded (``parallel.dist_pose_graph_opt``), and
+the ranks' maps stay equal bit for bit.  As in the JAX package, the mesh
+path passes no window anchors to the sharded solve.  Without such a group
+the engine raises; it never runs single-process in its place.
 """
 
 from __future__ import annotations
@@ -82,10 +92,26 @@ class Slam:
         self.cfg = config or SlamConfig()
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype or self.cfg.compute_dtype)
+        # the mesh path: window BA line-sharded, PGO edge-sharded over the
+        # default process group, whose world size must be mesh_devices
+        self.group = None
+        self.rank = 0
         if self.cfg.mesh_devices and self.cfg.mesh_devices > 1:
-            raise NotImplementedError(
-                "mesh_devices > 1: the sharded window BA and PGO are not "
-                "ported yet (ROADMAP.md Queue 1, P12)")
+            import torch.distributed as dist
+
+            from ..parallel import make_mesh
+            try:
+                self.group, self.rank, world = make_mesh()
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"mesh_devices={self.cfg.mesh_devices} needs an "
+                    f"initialized process group of world size "
+                    f"{self.cfg.mesh_devices}: {e}") from None
+            if world != self.cfg.mesh_devices:
+                raise ValueError(
+                    f"mesh_devices={self.cfg.mesh_devices} but the process "
+                    f"group has world size {world}")
+            self.dist_backend = dist.get_backend(self.group)
         self.embedding_walker = resolve_walker()
         self.state = MapState()
 
@@ -519,18 +545,23 @@ class Slam:
         self.stop_watch.tock("ba_pack")
 
         dev = self.device
-        cam_dev, line_dev, stats = staged_local_ba(
-            self._tensor(cam_p), self._tensor(lorth), self._tensor(obs_p),
-            torch.as_tensor(ocam, device=dev),
-            torch.as_tensor(olin, device=dev),
-            torch.as_tensor(valid, device=dev),
-            torch.as_tensor(cam_free, device=dev),
-            torch.as_tensor(line_free, device=dev), cfg.camera.baseline,
-            cfg.huber_delta, robust=cfg.robust, max_iters=cfg.max_num_iter,
-            line_param=cfg.line_param, gn_iters=cfg.lines_gn_iters,
-            cam_anchor_sigmas=window_anchor(cfg))
-        cam_out = cam_dev.cpu().numpy().astype(np.float64)
-        line_out = line_dev.cpu().numpy().astype(np.float64)
+        if self.group is not None:
+            cam_out, line_out, stats = self._sharded_ba(
+                cam_p, lorth, obs_p, ocam, olin, valid, cam_free, line_free)
+        else:
+            cam_dev, line_dev, stats = staged_local_ba(
+                self._tensor(cam_p), self._tensor(lorth),
+                self._tensor(obs_p), torch.as_tensor(ocam, device=dev),
+                torch.as_tensor(olin, device=dev),
+                torch.as_tensor(valid, device=dev),
+                torch.as_tensor(cam_free, device=dev),
+                torch.as_tensor(line_free, device=dev), cfg.camera.baseline,
+                cfg.huber_delta, robust=cfg.robust,
+                max_iters=cfg.max_num_iter, line_param=cfg.line_param,
+                gn_iters=cfg.lines_gn_iters,
+                cam_anchor_sigmas=window_anchor(cfg))
+            cam_out = cam_dev.cpu().numpy().astype(np.float64)
+            line_out = line_dev.cpu().numpy().astype(np.float64)
         iters = int(stats.iterations)
         init_cost = float(stats.initial_cost)
         final_cost = float(stats.final_cost)
@@ -559,6 +590,46 @@ class Slam:
                 T = st.kfs[lm.init_kfid].T
                 T_cache[lm.init_kfid] = T
             lm.line = line_to_pose(line_av_out[li], T)
+
+    def _sharded_ba(self, cam_p, lorth, obs_p, ocam, olin, valid, cam_free,
+                    line_free):
+        """The mesh path's window solve (slam.py:568-601): the staged
+        lines-GN on the whole problem, the partition by line, this rank's
+        sharded solve, and the ranks' lines gathered and put back in global
+        order.  No window anchors, as in the JAX package."""
+        from ..ops.schur_ba import lines_gn
+        from ..parallel import (all_gather_shards, dist_local_ba_lines,
+                                partition_by_line)
+        cfg = self.cfg
+        dev = self.device
+        if cfg.lines_gn_iters > 0:
+            # before the partition, so the sharded solve starts where the
+            # single-process staged_local_ba's local_ba does
+            lorth = lines_gn(
+                self._tensor(cam_p), self._tensor(lorth),
+                self._tensor(obs_p), torch.as_tensor(ocam, device=dev),
+                torch.as_tensor(olin, device=dev),
+                torch.as_tensor(valid, device=dev),
+                torch.as_tensor(line_free, device=dev), cfg.camera.baseline,
+                cfg.huber_delta, robust=cfg.robust, iters=cfg.lines_gn_iters,
+                line_param=cfg.line_param).cpu().numpy().astype(np.float64)
+        n = cfg.mesh_devices
+        lo, lf, ob, oc, ol, ov, perm = partition_by_line(
+            lorth, line_free, obs_p, ocam, olin, valid, n)
+        r = self.rank
+        cam_dev, line_dev, stats = dist_local_ba_lines(
+            self.group, self._tensor(cam_p), self._tensor(lo[r]),
+            self._tensor(ob[r]), torch.as_tensor(oc[r], device=dev),
+            torch.as_tensor(ol[r], device=dev),
+            torch.as_tensor(ov[r], device=dev),
+            torch.as_tensor(cam_free, device=dev),
+            torch.as_tensor(lf[r], device=dev), cfg.camera.baseline,
+            cfg.huber_delta, robust=cfg.robust, max_iters=cfg.max_num_iter,
+            line_param=cfg.line_param)
+        line_sh = all_gather_shards(self.group, line_dev)
+        line_out = line_sh.cpu().numpy().astype(np.float64).reshape(
+            -1, 4)[perm]
+        return cam_dev.cpu().numpy().astype(np.float64), line_out, stats
 
     # ------------------------------------------------------------------
     # landmark lifecycle
@@ -817,12 +888,28 @@ class Slam:
         pose_free[ei[0]] = False  # gauge (po_problem.cpp:62-63)
 
         dev = self.device
-        out, _ = pose_graph_opt(
-            self._tensor(poses), torch.as_tensor(ei, device=dev),
-            torch.as_tensor(ej, device=dev), self._tensor(ctr),
-            torch.ones(E, dtype=torch.bool, device=dev),
-            torch.as_tensor(pose_free, device=dev),
-            max_iters=self.cfg.pgo_num_iter)
+        if self.group is not None:
+            # edge-sharded over the ranks, the edges padded to a multiple
+            # of the world size (slam.py:929-938)
+            from ..parallel import dist_pose_graph_opt
+            pad = -E % self.cfg.mesh_devices
+            ei_p, ej_p = np.pad(ei, (0, pad)), np.pad(ej, (0, pad))
+            ctr_p = np.pad(ctr, ((0, pad), (0, 0)))
+            ev = np.arange(E + pad) < E
+            out, _ = dist_pose_graph_opt(
+                self.group, self._tensor(poses),
+                torch.as_tensor(ei_p, device=dev),
+                torch.as_tensor(ej_p, device=dev), self._tensor(ctr_p),
+                torch.as_tensor(ev, device=dev),
+                torch.as_tensor(pose_free, device=dev),
+                max_iters=self.cfg.pgo_num_iter)
+        else:
+            out, _ = pose_graph_opt(
+                self._tensor(poses), torch.as_tensor(ei, device=dev),
+                torch.as_tensor(ej, device=dev), self._tensor(ctr),
+                torch.ones(E, dtype=torch.bool, device=dev),
+                torch.as_tensor(pose_free, device=dev),
+                max_iters=self.cfg.pgo_num_iter)
         out = out.cpu().numpy().astype(np.float64)
         self.pgo_runs += 1
 
@@ -879,9 +966,14 @@ class Slam:
     def post_processing(self) -> Dict[str, object]:
         """Summary statistics (slam.cpp:1565-1632, main.cpp:84-89): the JAX
         engine's keys, plus the embedding walker that ran and the number
-        of pose-graph solves."""
+        of pose-graph solves; on the mesh path also the world size and the
+        process group's backend."""
         sw = self.stop_watch
         n = max(self.num_frames_processed, 1)
+        mesh = {}
+        if self.group is not None:
+            mesh = {"mesh_devices": self.cfg.mesh_devices,
+                    "dist_backend": self.dist_backend}
         return {
             "proc_pose_estimation_mean_s": sw.stats("pose_estimation").mean,
             "proc_local_ba_mean_s": sw.stats("local_ba").mean,
@@ -899,4 +991,5 @@ class Slam:
             "avg_final_cost": self.sum_final_cost / n,
             "embedding_walker": self.embedding_walker,
             "num_pose_graph_runs": self.pgo_runs,
+            **mesh,
         }

@@ -15,9 +15,11 @@ block key, one plan per solve: where JAX scatters with ``.at[].add``, the
 card sums every block's rows in a fixed order, so a solve repeats bit for
 bit.  The same edge terms serve the solvers' pose priors
 (``schur_ba.local_ba`` and ``schur_cg.global_ba_cg`` ``prior_edges``).
-The LM loop reads its condition from the device once per iteration.  The
-JAX function's ``axis_name`` (edge-sharded PGO) belongs to the distributed
-layer and is not ported.
+The LM loop reads its condition from the device once per iteration.  With
+``group`` (a ``torch.distributed`` process group, JAX's ``axis_name``) the
+edges are this rank's shard and each assemble all-reduces its (cost, H, g)
+in one collective (pose_graph.py:113-116): the edge-sharded PGO of
+``parallel/dist_pgo.py``.
 """
 
 from __future__ import annotations
@@ -129,8 +131,9 @@ def edge_system(plan: BlockPlan, J1, J2, r):
 
 
 def _assemble(poses, edges_i, edges_j, constraints, e_valid, free_f,
-              plan, huber_delta=None):
-    """Cost, H (6V,6V), g (6V,) at ``poses`` (pose_graph.py:72-117)."""
+              plan, huber_delta=None, group=None):
+    """Cost, H (6V,6V), g (6V,) at ``poses`` (pose_graph.py:72-117); with
+    ``group``, summed over its ranks' edge shards."""
     ei, ej = edges_i.long(), edges_j.long()
     r, j1, j2 = edge_residual_jac(poses[ei], poses[ej], constraints)
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
@@ -148,18 +151,24 @@ def _assemble(poses, edges_i, edges_j, constraints, e_valid, free_f,
     else:
         cost = 0.5 * torch.sum(r * r)
     H, g = edge_system(plan, j1, j2, r)
-    return cost, H, g.reshape(-1)
+    g = g.reshape(-1)
+    if group is not None:
+        from ..parallel.comm import all_reduce_sum
+        cost, H, g = all_reduce_sum(group, cost, H, g)
+    return cost, H, g
 
 
 def pose_graph_opt(poses, edges_i, edges_j, constraints, e_valid, pose_free,
-                   max_iters=10, huber_delta=None):
+                   max_iters=10, huber_delta=None, group=None):
     """Optimize keyframe poses against relative-pose constraints
     (pose_graph_opt_impl, pose_graph.py:120-201).
 
     poses (V,6) world->cam (angle-axis, t); edges_i, edges_j (E,) int;
     constraints (E,6), the pose of j relative to i; e_valid (E,) bool;
-    pose_free (V,) bool, False for gauge-fixed poses.  Returns (poses',
-    PGOStats)."""
+    pose_free (V,) bool, False for gauge-fixed poses.  ``group``: the
+    edges are this rank's shard of the graph, every other argument is
+    replicated, and each assemble sums over the ranks (one all-reduce), so
+    every rank takes the same steps.  Returns (poses', PGOStats)."""
     # schur_ba imports this module for its pose priors: its LM constants
     # and dense solve come in here, at call time
     from .schur_ba import (_FUNCTION_TOL, _INIT_RADIUS, _MAX_DIAG, _MIN_DIAG,
@@ -172,7 +181,7 @@ def pose_graph_opt(poses, edges_i, edges_j, constraints, e_valid, pose_free,
 
     def assemble(p):
         return _assemble(p, edges_i, edges_j, constraints, ev, free_f, plan,
-                         huber_delta)
+                         huber_delta, group)
 
     cost0, H, g = assemble(poses)
     cost = cost0

@@ -24,7 +24,9 @@ a fixed block key.  ``cam_anchor_sigmas`` anchors every free camera at its
 initial pose (the interactive engine's window anchors): per-camera adds
 around K2's output, a diagonal on Hcc, its gradient on gc and its cost in
 the trial cost.  ``staged_local_ba`` is lines-GN followed by ``local_ba``,
-the interactive engine's window solve.
+the interactive engine's window solve.  ``local_ba``'s ``group`` runs the
+same loop on one rank of a process group, over that rank's line shard
+(``parallel/dist_ba.py``).
 """
 
 from __future__ import annotations
@@ -191,12 +193,26 @@ def _cho_solve_equilibrated(S, rhs):
     return _cholesky_solve_batched(Sn, rhs * di) * di
 
 
-def _solve_step(Hcc, Hll, gc, gl, W, lam, cam_free_f, line_free_f,
-                Hoff=None, prior=None):
+def _sum_ranks(group, *tensors):
+    """``tensors`` summed over the ranks of ``group`` in one all-reduce
+    (``parallel/comm.py``); unchanged when ``group`` is None."""
+    if group is None:
+        return tensors
+    from ..parallel.comm import all_reduce_sum
+    return all_reduce_sum(group, *tensors)
+
+
+def _schur_step(Hcc, Hll, gc, gl, W, lam, cam_free_f, line_free_f,
+                Hoff=None, prior=None, group=None):
     """Solve (H + lam D^2) delta = -g by Schur elimination of the lines
-    (schur_ba.py:357-409).  ``Hoff`` (E,6,6): the prior edges' camera-camera
-    coupling, placed in the dense reduced system by one K1 sum over the
-    ``"offdiag"`` plan of ``prior`` (a ``PriorEdges``)."""
+    (schur_ba.py:357-409): (dc, dl) and the clamped diagonals (diag_c,
+    diag_l).  ``Hoff`` (E,6,6): the prior edges' camera-camera coupling,
+    placed in the dense reduced system by one K1 sum over the
+    ``"offdiag"`` plan of ``prior`` (a ``PriorEdges``).  With ``group``
+    (schur_ba.py:695-750) the lines, Hll, gl and W's line columns are this
+    rank's and Hcc, gc the sums over the ranks: each rank eliminates its
+    own 4x4 line blocks, and one all-reduce of its (6C x 6C) coupling and
+    rhs builds the reduced camera system, which every rank solves alike."""
     C = Hcc.shape[0]
     L = Hll.shape[0]
     dtype, dev = Hcc.dtype, Hcc.device
@@ -211,7 +227,8 @@ def _solve_step(Hcc, Hll, gc, gl, W, lam, cam_free_f, line_free_f,
     Wm = W.permute(0, 2, 1, 3).reshape(C * 6, L * 4)
     X = torch.einsum("clab,lbd->clad", W, Binv)
     Xm = X.permute(0, 2, 1, 3).reshape(C * 6, L * 4)
-    S = -(Xm @ Wm.T)
+    S_coup, rhs_coup = _sum_ranks(group, Xm @ Wm.T, Xm @ gl.reshape(-1))
+    S = -S_coup
     Hcc_d = Hcc + lam * diag_c[..., None] * torch.eye(6, dtype=dtype,
                                                       device=dev)
     S = S.reshape(C, 6, C, 6)
@@ -224,7 +241,7 @@ def _solve_step(Hcc, Hll, gc, gl, W, lam, cam_free_f, line_free_f,
                           plan=prior.plan.hplan)
         S = S + off.reshape(C, C, 6, 6).permute(0, 2, 1, 3)
     S = S.reshape(C * 6, C * 6)
-    rhs = -gc.reshape(-1) + Xm @ gl.reshape(-1)
+    rhs = -gc.reshape(-1) + rhs_coup
 
     # fixed cameras: identity rows/cols, zero rhs
     m = cam_free_f.repeat_interleave(6)
@@ -236,10 +253,7 @@ def _solve_step(Hcc, Hll, gc, gl, W, lam, cam_free_f, line_free_f,
     dl = -torch.einsum("lab,lb->la", Binv, gl + coup)
     dl = dl * line_free_f[:, None]
     dc = dc * cam_free_f[:, None]
-    damp_quad = lam * (torch.sum(diag_c * dc * dc)
-                       + torch.sum(diag_l * dl * dl))
-    g_dot_d = torch.sum(gc * dc) + torch.sum(gl * dl)
-    return dc, dl, damp_quad, g_dot_d
+    return dc, dl, diag_c, diag_l
 
 
 def lines_gn(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
@@ -315,7 +329,7 @@ def make_prior_edges(prior_edges, C, dtype, device, blocks=None):
 def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
              cam_free, line_free, baseline, huber_delta, robust=True,
              max_iters=10, line_param="orth", pose_only=False,
-             cam_anchor_sigmas=None, prior_edges=None):
+             cam_anchor_sigmas=None, prior_edges=None, group=None):
     """Windowed local BA (schur_ba.py:412-653).  Shapes are padded; the
     arguments are those of the JAX ``local_ba_impl``.  ``pose_only``
     treats every line as fixed and never builds the line blocks (the
@@ -328,8 +342,30 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
     ``cam_anchor_sigmas``: (sigma_rot, sigma_t), a weak Gaussian anchor of
     every free camera at its initial pose (schur_ba.py:448-459, 479-489).
 
+    ``group``: the line-sharded solve on one rank of that process group
+    (local_ba_sharded_impl, schur_ba.py:753-841).  The rank holds the
+    replicated cameras and its own lines with their observations
+    (``obs_line`` indexes the rank's lines; pad rows have ``obs_valid``
+    False and stay out of the plans and of the cost), and each evaluate is
+    K2 ``full`` over its own plans.  Three all-reduces per LM iteration,
+    one for each place JAX psums: Hcc and gc after the evaluate (JAX's psum
+    also carries the evaluate's cost, which this loop never reads: it takes
+    the trial cost); the (6C x 6C) coupling and its rhs in the solve; and,
+    in one buffer, the line terms of damp_quad and g_dot_d, the trial cost
+    and the line terms of the two norms (JAX psums those where it uses them
+    and evaluates no separate trial cost).  So the bytes per LM iteration
+    depend on C alone: (36 C^2 + 48 C + 5) elements.  Every rank reaches
+    the same verdict, since every branch reads reduced values or replicated
+    state.  Not with ``pose_only``, anchors or priors (JAX's sharded solve
+    has none of them).
+
     Returns (cam_wt', line_orth', BAStats); ``BAStats.iterations`` counts
-    LM steps, accepted or not."""
+    LM steps, accepted or not.  With ``group`` the cameras are replicated
+    and the lines this rank's."""
+    if group is not None and (pose_only or cam_anchor_sigmas is not None
+                              or prior_edges is not None):
+        raise ValueError("the line-sharded solve (group) takes no "
+                         "pose_only, cam_anchor_sigmas or prior_edges")
     dtype, dev = cam_wt.dtype, cam_wt.device
     ftol, ptol = _tolerances(dtype)
     cam_free_f = cam_free.to(dtype)
@@ -363,7 +399,7 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
             cost = cost + prior_cost(prior, cw)
         return cost
 
-    cost0 = cost_only(cam_wt, line_orth)
+    cost0, = _sum_ranks(group, cost_only(cam_wt, line_orth))
     cam, line, cost = cam_wt, line_orth, cost0
     radius = torch.tensor(_INIT_RADIUS, dtype=dtype, device=dev)
     dec = torch.tensor(2.0, dtype=dtype, device=dev)
@@ -383,24 +419,35 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
             dc, damp_quad, g_dot_d = _solve_step_pose(Hcc, gc, lam,
                                                       cam_free_f)
             dl = torch.zeros_like(line)
+            line_terms = ()
         else:
             _, Hcc, Hll, gc, gl, W = _eval_system(
                 cam.contiguous(), line.contiguous(), obs, obs_cam, obs_line,
                 w_valid, cam_free_f, line_free_f, baseline, huber_delta,
                 robust, line_param, plan)
+            Hcc, gc = _sum_ranks(group, Hcc, gc)
             if anchor is not None:
                 Hcc, gc = Hcc + H_a, gc + anchor.terms(cam, cam_free_f)[1]
             Hoff = None
             if prior is not None:
                 _, gc_e, Hcc_e, Hoff = prior_terms(prior, cam, cam_free_f)
                 Hcc, gc = Hcc + Hcc_e, gc + gc_e
-            dc, dl, damp_quad, g_dot_d = _solve_step(
+            dc, dl, diag_c, diag_l = _schur_step(
                 Hcc, Hll, gc, gl, W, lam, cam_free_f, line_free_f, Hoff,
-                prior)
+                prior, group)
+            # the line terms of damp_quad / lam and g_dot_d
+            line_terms = (torch.sum(diag_l * dl * dl), torch.sum(gl * dl))
 
         cam_new = cam + dc
         line_new = line + dl
-        cost_new = cost_only(cam_new, line_new)
+        # this rank's line terms, trial cost and line norms, summed over
+        # the ranks in one buffer
+        *line_terms, cost_new, line_sq, dl_sq = _sum_ranks(
+            group, *line_terms, cost_only(cam_new, line_new),
+            torch.sum(line * line), torch.sum(dl * dl))
+        if not pose_only:
+            damp_quad = lam * (torch.sum(diag_c * dc * dc) + line_terms[0])
+            g_dot_d = torch.sum(gc * dc) + line_terms[1]
 
         model_change = 0.5 * (damp_quad - g_dot_d)
         rho = (cost - cost_new) / torch.clamp_min(model_change, 1e-300)
@@ -416,8 +463,8 @@ def local_ba(cam_wt, line_orth, obs, obs_cam, obs_line, obs_valid,
         dec = torch.where(accept, torch.full_like(dec, 2.0), dec * 2.0)
 
         fconv = torch.abs(cost - cost_new) <= ftol * cost
-        xnorm = torch.sqrt(torch.sum(cam * cam) + torch.sum(line * line))
-        snorm = torch.sqrt(torch.sum(dc * dc) + torch.sum(dl * dl))
+        xnorm = torch.sqrt(torch.sum(cam * cam) + line_sq)
+        snorm = torch.sqrt(torch.sum(dc * dc) + dl_sq)
         pconv = snorm <= ptol * (xnorm + ptol)
         converged = torch.logical_and(accept, torch.logical_or(fconv, pconv))
         done = torch.logical_or(converged, ~(snorm > 0))

@@ -180,15 +180,15 @@ def test_empty_frames_are_skipped():
 
 def test_unported_options_raise():
     """ba_init_jitter, window anchors and aid / asd lines are ported now
-    (tests/test_torch_batch_options.py); what stays unported is the
-    interactive engine's sharded mode, and the window anchors need
+    (tests/test_torch_batch_options.py); the interactive engine's sharded
+    mode needs an initialized process group, and the window anchors need
     positive sigmas."""
     for over in (dict(ba_init_jitter=0.1), dict(line_param="aid"),
                  dict(window_anchor_sigma_rot=0.1,
                       window_anchor_sigma_t=0.1)):
         tb.BatchSlam(dataclasses.replace(CFG, **over), device="cpu")
     from slslam_tpu_torch.engine import Slam
-    with pytest.raises(NotImplementedError, match="P12"):
+    with pytest.raises(RuntimeError, match="process group"):
         Slam(dataclasses.replace(CFG, mesh_devices=2), device="cpu")
     from slslam_tpu_torch.ops.schur_ba import make_cam_anchor
     with pytest.raises(ValueError, match="positive"):

@@ -11,7 +11,10 @@ numpy parts of
 slslam_tpu.engine.refine, slslam_tpu.ops.schur_cg and
 slslam_tpu.engine.batch_lc, the numpy vocabulary training of
 slslam_tpu.loopclosure.voctree, slslam_tpu.viz,
-slslam_tpu.viz_interactive and slslam_tpu.sim.street.  These tests hold each copy to its
+slslam_tpu.viz_interactive, slslam_tpu.sim.street,
+slslam_tpu.parallel.dist_ba's partition_by_line and
+__graft_entry__._example_ba_problem (tools/torch_scaling_bench.py).
+These tests hold each copy to its
 original on the same inputs (exact equality; the refine's and the packer's
 copies are held in tests/test_torch_refine.py and
 tests/test_torch_schur_cg.py, the loop closure's joint problem packing in
@@ -492,6 +495,39 @@ def test_real_proxy_matches_jax():
     assert out["ate_refined_m"] < 0.01 * out["path_len_m"]
 
 
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 8])
+def test_partition_by_line_identical(n_shards):
+    """parallel/dist_ba.py's copy of partition_by_line: the same stacked
+    shards and perm as the JAX package's, on a padded window with pad rows
+    and lines without observations."""
+    from slslam_tpu.parallel.dist_ba import partition_by_line as jpart
+    from slslam_tpu_torch.parallel.dist_ba import partition_by_line as tpart
+    rng = np.random.default_rng(n_shards)
+    L, O = 37, 300
+    args = (rng.standard_normal((L, 4)), rng.random(L) > 0.2,
+            rng.standard_normal((O, 8)), rng.integers(0, 9, O).astype(
+                np.int32), rng.integers(0, L - 3, O).astype(np.int32),
+            rng.random(O) > 0.1, n_shards)
+    for a, b in zip(tpart(*args), jpart(*args), strict=True):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_scaling_tool_example_problem_identical():
+    """tools/torch_scaling_bench.py's numpy copy of
+    __graft_entry__._example_ba_problem."""
+    import jax.numpy as jnp
+
+    from __graft_entry__ import _example_ba_problem as jprob
+    from tools.torch_scaling_bench import _example_ba_problem as tprob
+    for C, L, O in ((8, 64, 256), (64, 512, 16384)):
+        mine = tprob(C=C, L=L, O=O)
+        theirs = jprob(C=C, L=L, O=O, dtype=jnp.float64)
+        assert len(mine) == len(theirs)
+        for a, b in zip(mine, theirs):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def _port_modules():
     mods = [slslam_tpu_torch.__name__]
     for info in pkgutil.walk_packages(slslam_tpu_torch.__path__,
@@ -530,7 +566,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "slslam_tpu_torch.viz_interactive",
               "slslam_tpu_torch.sim.street", "tools.torch_frontend_bench",
               "tools.torch_large_map_bench", "tools.torch_param_study",
-              "tools.torch_scale_lc", "tools.torch_real_proxy"):
+              "tools.torch_scale_lc", "tools.torch_real_proxy",
+              "slslam_tpu_torch.parallel",
+              "slslam_tpu_torch.parallel.comm",
+              "slslam_tpu_torch.parallel.dist_ba",
+              "slslam_tpu_torch.parallel.dist_pgo",
+              "slslam_tpu_torch.parallel.multihost",
+              "tools.torch_scaling_bench"):
         assert m in mods, m
 
 

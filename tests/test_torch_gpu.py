@@ -13,7 +13,9 @@ beside what rounding alone does to the CPU's result; K2 with aid and asd
 lines through the chain rule; the interactive engine on the card
 against the CPU; the image front-end's maps, descriptors and ``cli
 track`` on the card against the CPU; and the large map's plans, K1 and
-K2 ``lm`` at its map-scale shapes, and its f64 solve card against CPU.  They run only
+K2 ``lm`` at its map-scale shapes, and its f64 solve card against CPU;
+and the line-sharded window solve at world 1 (NCCL) and world 2 (two
+ranks sharing the card over gloo) against the single solve.  They run only
 with SLSLAM_GPU_TESTS=1 on a machine with an NVIDIA GPU and nvcc, and skip
 otherwise.  The file imports no jax, so on a machine without it run
 
@@ -587,3 +589,38 @@ def test_large_map_f64_on_gpu_matches_cpu(cuda_device):
     assert outg["final_cost"] == pytest.approx(outc["final_cost"], rel=1e-9,
                                                abs=0)
     assert outg["rpe_final_m"] < outg["rpe_init_m"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_sharded_window_solve_on_gpu_matches_single(cuda_device, world,
+                                                    backend):
+    """The line-sharded window solve on the card (chip_smoke.py phase 10
+    (c) at world 1; at world 2 two ranks share the card over gloo, as the
+    backend rule says) against ``local_ba`` on the card, on
+    tests/test_distributed.py's house window in float64: the same LM
+    iterations, within the JAX package's tolerance for its sharded solve
+    (rtol 1e-7, atol 1e-9); both ranks equal bit for bit."""
+    import numpy as np
+
+    import torch_mesh_ranks as ranks
+    from slslam_tpu_torch.config import CameraConfig
+    from slslam_tpu_torch.ops.schur_ba import local_ba
+    from slslam_tpu_torch.parallel import run_local_ranks
+    problem = ranks.house_window_problem()
+    bl, hd = CameraConfig().baseline, 1.0 / CameraConfig().focal_length
+    t = [torch.as_tensor(a, device=cuda_device) for a in problem]
+    t = [x.double() if x.is_floating_point() else x for x in t]
+    cam_s, line_s, st_s = local_ba(*t, bl, hd)
+    res = run_local_ranks(ranks.ba_rank, world, args=(problem, bl, hd),
+                          device="cuda", timeout_s=300.0)
+    for r in res[1:]:
+        np.testing.assert_array_equal(r[0], res[0][0])
+        np.testing.assert_array_equal(r[1], res[0][1])
+    cam, line, it, _, _, _, got_backend = res[0]
+    assert got_backend == backend
+    assert it == int(st_s.iterations)
+    np.testing.assert_allclose(cam, cam_s.cpu().numpy(), rtol=1e-7,
+                               atol=1e-9)
+    np.testing.assert_allclose(line, line_s.cpu().numpy(), rtol=1e-7,
+                               atol=1e-9)

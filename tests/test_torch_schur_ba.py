@@ -68,9 +68,15 @@ def test_solve_step_matches_jax():
         cam, line, obs, oc, ol, wv, cf, lf, bl, hd)
     a = jax.jit(jba._solve_step)(*sys_j[1:], 1e-3, cf, lf)
     sys_t = [torch.as_tensor(np.array(x)) for x in sys_j[1:]]
-    b = tba._solve_step(*sys_t, 1e-3, torch.as_tensor(np.array(cf)),
-                        torch.as_tensor(np.array(lf)))
-    for x, y in zip(a, b):
+    dc, dl, diag_c, diag_l = tba._schur_step(
+        *sys_t, 1e-3, torch.as_tensor(np.array(cf)),
+        torch.as_tensor(np.array(lf)))
+    # local_ba's model terms damp_quad and g_dot_d from the step
+    _, _, gc, gl, _ = sys_t
+    b = (dc, dl,
+         1e-3 * (torch.sum(diag_c * dc * dc) + torch.sum(diag_l * dl * dl)),
+         torch.sum(gc * dc) + torch.sum(gl * dl))
+    for x, y in zip(a, b, strict=True):
         np.testing.assert_allclose(y.numpy(), np.asarray(x), rtol=1e-9,
                                    atol=1e-12)
 
