@@ -8,9 +8,14 @@ Phases, each printing one JSON line:
    build of the kernel libraries from slslam_tpu_torch/csrc (sm_90a, one
    nvcc per source, in parallel) and each kernel's registers and spills
    from ``-Xptxas -v``;
-1. K1: the segment plan against its twin (identical), and ``segment_sum``
-   with and without a plan against its twin on CPU copies, float32 and
-   float64, at the shapes of the replay and of the refine's PCG; and
+1. K1: the segment plan against its twin (identical; on each path that
+   can take the shape, each launched twice) at the main path's shapes, at
+   the larger plans' (the large map's 3.49M-row line and camera plans, the
+   scaling tool's pairs, the interactive window's pairs, the LC PGO's V^2
+   blocks), on either side of each path's limit and on adversarial keys
+   (``kernel_checks.plan_adversarial_cases``); ``segment_sum`` with and
+   without a plan against its twin on CPU copies, float32 and float64, at
+   the shapes of the replay and of the refine's PCG; and
    ``assemble`` (the port of ``assemble_pallas``: three K1 sums, on no
    main path) against its plain version at the window's shape, checked
    and timed;
@@ -27,9 +32,9 @@ Phases, each printing one JSON line:
    buffer, for the plan a stable ``torch.sort`` plus ``torch.searchsorted``.
    The plan is timed at each shape the main path builds (the window's line
    and (cam, line) pair plans, the VO polish's camera plan, a refine
-   solve's camera and line plans) and K1 at lines-GN's trial cost and the
-   PCG's two camera sums; the shapes after the first are listed under
-   ``shapes`` in the kernel's record;
+   solve's camera and line plans) and at the larger plans' shapes, and K1
+   at lines-GN's trial cost and the PCG's two camera sums; the shapes
+   after the first are listed under ``shapes`` in the kernel's record;
 3. slice parity in float64: 60 house frames on CUDA (kernels) and on the
    CPU (twins), fed the same Gumbel noise: identical keyframes and RANSAC
    scores, trajectories within 1e-6 m, every replay variant of K2
@@ -354,14 +359,18 @@ def ptxas_summary(reports):
             if m:
                 mangled = m.group(1)
                 k2 = re.search(r"fused_eval_kernelI([fd])Li(\d)E", mangled)
+                lm = re.search(r"lm_(rows|cams)_kernelI([fd])E", mangled)
                 k1 = re.search(r"seg_sum_kernelI([fd])E", mangled)
+                plan = re.search(r"plan_(\w+?)_kernel", mangled)
                 if k2:
                     name = (f"fused_eval/{VARIANTS[int(k2[2])]}"
                             f"/{dtypes[k2[1]]}")
+                elif lm:
+                    name = f"fused_eval/lm/{lm[1]}/{dtypes[lm[2]]}"
                 elif k1:
                     name = f"segment_sum/{dtypes[k1[1]]}"
-                elif "seg_plan_kernel" in mangled:
-                    name = "segment_plan"
+                elif plan:
+                    name = f"segment_plan/{plan[1]}"
                 else:
                     name = mangled
                 out[name] = {}
@@ -397,6 +406,14 @@ def phase1(dev, rec):
     from slslam_tpu_torch.ops import kernels
     out = {"phase": 1,
            "plans": {str(s): d for s, d in kc.check_plans(dev)}}
+    # the plan, every path that can take each shape, at the larger plans'
+    # shapes, on either side of each path's limit and on adversarial keys
+    for key, kw in (("plans_large", dict(shapes=kc.PLAN_LARGE_SHAPES)),
+                    ("plans_boundary",
+                     dict(shapes=kc.PLAN_BOUNDARY_SHAPES)),
+                    ("plans_adversarial",
+                     dict(cases=kc.plan_adversarial_cases()))):
+        out[key] = {str(s): d for s, d in kc.check_plans(dev, **kw)}
     for dtype in (torch.float32, torch.float64):
         for shape, err, max_abs in kc.check_k1(dtype, dev):
             out[f"{str(dtype)[6:]}_{shape}"] = {"err": err,
@@ -410,6 +427,11 @@ def phase1(dev, rec):
         add_shape(rec["segment_plan"], dict(
             shape=[O, P], role=role,
             max_abs_err=float(out["plans"][str((O, P))]),
+            **plan_times(dev, O, P)))
+    for role, (O, P) in zip(kc.PLAN_LARGE_ROLES, kc.PLAN_LARGE_SHAPES):
+        add_shape(rec["segment_plan"], dict(
+            shape=[O, P], role=role,
+            max_abs_err=float(out["plans_large"][str((O, P))]),
             **plan_times(dev, O, P)))
 
     k1_roles = ("lines-GN trial cost", None, None, "refine PCG matvec",

@@ -29,16 +29,29 @@ Each part prints one JSON line.  Without a CUDA device it exits 1.
 
     python3 profile_replay.py --kernels ROOT
 
-instead times the window-BA kernels of the checkout at ROOT (default:
-this one): K2 ``fused_eval`` (the full evaluate, (C, L, O) = (20, 81,
-1600)) and K1 ``segment_sum`` at (O, D, P) = (1600, 21, 81) and (1600, 1,
-81) without a plan, in float32 (K2 gets its plan, built once outside the
-timing, where the checkout has one), on the inputs of this checkout's
-``kernel_checks``: eager CUDA events over 50 launches (``ms``, the host's
-enqueue included) and the replay of a CUDA graph of 50 captured launches
-(``device_ms``).  It calls only what every version of the port has, so two
-commits compare in one call: unpack the other into a git-ignored
-directory and run parent, change, change, parent.
+instead times the kernels of the checkout at ROOT (default: this one) in
+float32, on the inputs of this checkout's ``kernel_checks``: K2
+``fused_eval`` at each variant's main-path shape (``full``, ``cams`` and
+``lines`` at the window's, ``lm`` at the refine's) and ``lm`` at the large
+map's (8192, 109,147, 3,492,704) with its ~73 % padding, each with its
+plan built once outside the timing where the checkout has plans; K1
+``segment_sum`` at (O, D, P) = (1600, 21, 81) and (1600, 1, 81) without a
+plan; and the segment plan at every shape of ``PLAN_SHAPES`` and
+``PLAN_LARGE_SHAPES`` (the window's, the refine's, the large map's, the
+scaling tool's, the interactive window's and the PGO's).  Each gets eager
+CUDA events over 50 launches (``ms``, the host's enqueue included) and the
+replay of a CUDA graph of 50 captured launches (``device_ms``), fewer
+where one launch is long (chip_smoke._reps).  It calls only what every
+version of the port has, so two commits compare in one call: unpack the
+other into a git-ignored directory and run parent, change, change,
+parent.  Where the checkout's plan has several paths, the plan is also
+timed on each path that can take the shape.
+
+    python3 profile_replay.py --refine ROOT [--seed N]
+
+runs part 1's replay once with the port of the checkout at ROOT (render
+seed 4, or ``--seed``), then its refine three times back to back, and prints each refine's wall and its LM
+and PCG iterations by solve; run it in its own process for each checkout.
 """
 
 import argparse
@@ -193,9 +206,9 @@ def same_run(a, b):
 
 
 def kernel_times(root):
-    """Times of the window-BA kernels of the checkout at ``root``, on the
-    inputs of this checkout's kernel_checks (the same inputs whichever
-    checkout is timed)."""
+    """Times of the kernels of the checkout at ``root``, on the inputs of
+    this checkout's kernel_checks (the same inputs whichever checkout is
+    timed)."""
     import torch
     from slslam_tpu_torch import kernel_checks as kc
     dev = torch.device("cuda", 0)
@@ -203,6 +216,17 @@ def kernel_times(root):
     args = kc.k2_case(torch.float32, dev)
     k1_args = {shape: kc.k1_case(*shape, torch.float32, dev)
                for shape in ((1600, 21, 81), (1600, 1, 81))}
+    k2_args = {(v, shape): kc.k2_lm_case(
+        torch.float32, dev, C=shape[0], L=shape[1], kL=shape[2] // shape[1],
+        pad_frac=pad) if v == "lm" else kc.k2_case(
+        torch.float32, dev, *shape)
+        for v, shape, pad in (
+            ("cams", kc.K2_SHAPES["cams"], None),
+            ("lines", kc.K2_SHAPES["lines"], None),
+            ("lm", kc.K2_SHAPES["lm"], 0.008),
+            ("lm", (kc.MAP_C, kc.MAP_L, kc.MAP_O), kc.MAP_PAD))}
+    plan_keys = {(O, P): kc.plan_case(O, P, dev)
+                 for O, P in kc.PLAN_SHAPES + kc.PLAN_LARGE_SHAPES}
     # now import the port of the checkout at root
     for name in [m for m in sys.modules
                  if m.split(".")[0] == "slslam_tpu_torch"]:
@@ -230,6 +254,85 @@ def kernel_times(root):
         out[f"segment_sum_{O}_{D}_{P}"] = {
             "ms": cuda_ms(lambda: kernels.segment_sum(vals, idx, P)),
             "device_ms": graph_ms(lambda: kernels.segment_sum(vals, idx, P))}
+    for (variant, shape), a in k2_args.items():
+        plan = kernels.ba_plan(a["obs_cam"], a["obs_line"], a["w_valid"],
+                               shape[0], shape[1], variant)
+
+        def k2():
+            return kernels.fused_eval(**a, variant=variant, plan=plan)
+
+        out[f"fused_eval_{variant}_{'_'.join(map(str, shape))}"] = {
+            "ms": cuda_ms(k2), "device_ms": graph_ms(k2)}
+        del plan
+    for (O, P), key in plan_keys.items():
+        out[f"segment_plan_{O}_{P}"] = {
+            "ms": cuda_ms(lambda: kernels.segment_plan(key, P)),
+            "device_ms": graph_ms(lambda: kernels.segment_plan(key, P))}
+        # each forced path that can take (O, P), where the checkout has
+        # several (PR 9 on)
+        paths = kernels.plan_paths(O, P)[1:] if hasattr(
+            kernels, "plan_paths") else []
+        for path in paths:
+            def plan(path=path):
+                return kernels.segment_plan(key, P, path=path)
+            out[f"segment_plan_{O}_{P}"][path] = {
+                "ms": cuda_ms(plan), "device_ms": graph_ms(plan)}
+    log(out)
+
+
+def refine_times(root, seed=4, reps=3):
+    """The replay of part 1 once (render seed ``seed``), then ``reps``
+    refines of it back to back,
+    all with the port of the checkout at ``root`` (imported from there
+    before anything else of the port): each refine's wall and its LM and
+    PCG iterations by solve.  The first refine of the process holds the
+    warm-up."""
+    import torch
+    sys.path.insert(0, root)
+    from slslam_tpu_torch.bench import ate, bench_config, workload
+    from slslam_tpu_torch.engine import refine
+    from slslam_tpu_torch.engine.batch import BatchSlam
+    from slslam_tpu_torch.ops import kernels
+    if not os.path.samefile(os.path.dirname(kernels.CSRC_DIR),
+                            os.path.join(root, "slslam_tpu_torch")):
+        raise RuntimeError(f"imported the port from {kernels.CSRC_DIR}, "
+                           f"not from {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kernels.load_library()
+    cfg = bench_config("float32")
+    frames, poses = workload(cfg, 400, seed)
+    t0 = time.perf_counter()
+    res = BatchSlam(cfg, device=dev).run(frames)
+    torch.cuda.synchronize()
+    out = {"root": root, "seed": seed, "nvidia_smi": nvidia_smi(),
+           "replay_s": time.perf_counter() - t0,
+           "ate_raw_m": ate(res.trajectory, poses), "refines": []}
+    solves = []
+    saved = refine.global_ba_cg
+
+    def recorded(*a, **k):
+        r = saved(*a, **k)
+        solves.append((int(r[2].iterations), int(r[2].cg_iterations)))
+        return r
+
+    refine.global_ba_cg = recorded
+    try:
+        for _ in range(reps):
+            solves.clear()
+            t0 = time.perf_counter()
+            ref = refine.global_refine(frames, res.is_kf, res.trajectory,
+                                       config=cfg, rounds=REFINE_ROUNDS,
+                                       device=dev)
+            torch.cuda.synchronize()
+            out["refines"].append({
+                "wall_s": time.perf_counter() - t0,
+                "lm_iterations": [i for i, _ in solves],
+                "pcg_iterations": [c for _, c in solves],
+                "ate_refined_m": ate(ref.trajectory, poses)})
+    finally:
+        refine.global_ba_cg = saved
     log(out)
 
 
@@ -238,6 +341,10 @@ def main():
     ap.add_argument("--kernels", metavar="ROOT", nargs="?", default=None,
                     const=os.path.dirname(os.path.abspath(__file__)),
                     help="time the kernels of the checkout at ROOT instead")
+    ap.add_argument("--refine", metavar="ROOT", default=None,
+                    help="time the refine of the checkout at ROOT instead")
+    ap.add_argument("--seed", type=int, default=4,
+                    help="the render seed of --refine's replay")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -246,6 +353,9 @@ def main():
         sys.exit(1)
     if opts.kernels is not None:
         kernel_times(os.path.abspath(opts.kernels))
+        return
+    if opts.refine is not None:
+        refine_times(os.path.abspath(opts.refine), opts.seed)
         return
     from slslam_tpu_torch.bench import ate, bench_config, workload
     from slslam_tpu_torch.engine.batch import BatchSlam

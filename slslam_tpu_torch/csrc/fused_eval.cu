@@ -1,4 +1,5 @@
-// K2: fused_eval -- the BA evaluate in one launch, in four variants.
+// K2: fused_eval -- the BA evaluate in one launch (lm: two), in four
+// variants.
 //
 // Replaces the TPU's fused_eval_pallas (slslam_tpu/ops/pallas_kernels.py:
 // 335-428) and its two kernels _make_fused_camline_kernel (:278-307) and
@@ -7,8 +8,8 @@
 // camera poses (C,6), orth lines (L,4) and observations (O,8) with their
 // camera / line indices, validity weights and free flags it computes the
 // Huber cost and the normal-equation blocks: the semantics of
-// slslam_tpu/ops/schur_ba.py _eval_system (:93-176).  Variants (template
-// argument, one kernel each):
+// slslam_tpu/ops/schur_ba.py _eval_system (:93-176).  Variants (a template
+// argument of one kernel; lm has two kernels of its own):
 //
 //   full   cost, Hcc (C,6,6), gc (C,6), Hll (L,4,4), gl (L,4) and the
 //          cam-line coupling W (C,L,6,4), a sum over repeated pairs: the
@@ -23,8 +24,8 @@
 //          Wb (O,6,4) in the caller's row order: the line-major evaluate of
 //          the global refine (slslam_tpu/ops/schur_cg.py _eval_system_lm,
 //          :118-166), whose PCG matvec consumes the per-row blocks.  Rows
-//          that the camera plan drops (w_valid <= 0: the line-major
-//          padding) get exact zeros in Wb.
+//          that the plans drop (w_valid <= 0: the line-major padding) get
+//          exact zeros in Wb.  Two launches (below).
 //
 // What bounds it on the H100: at the window shape (C = 20, L = 81,
 // O = 1600) the full variant reads ~73 KB and writes ~165 KB (f32); its
@@ -36,16 +37,18 @@
 // memory is the most this design can do about that.  At the refine's
 // shape (C = 400, L = 74, O = 29,600) lm reads ~2 MB and writes Wb's
 // ~2.8 MB (f32), ~1.5 us at the HBM rate; its ~43 MFLOP take ~0.6 us at
-// the f32 rate.  There the dual-number passes (6 + 4 tangents in camera
-// blocks, 4 more in line blocks) and the register pressure they bring are
-// what the kernel spends.
+// the f32 rate.  At the large map's (C = 8192, L = 109,147, O = 3,492,704
+// line-major rows of kL = 32, 929,796 of them valid) it must write Wb,
+// 335 MB in f32 of which 73 % are the padding rows' zeros: 0.12 ms at the
+// HBM rate, the bound; its ~1.3 GFLOP take ~0.02 ms.
 //
 // Design.  Rows are reached through segment plans (segment_sum.cu
 // seg_plan), built once per BA solve and reused in every LM iteration:
-// stable groupings of the valid rows by camera (cams), by line (full,
-// lines) and by (camera, line) pair (full; camera c is then the run of
-// pair segments [c L, c L + L), its rows grouped by line).  One block per
-// camera and one per line, each reducing only its own rows:
+// stable groupings of the valid rows by camera (cams, lm), by line (full,
+// lines, lm) and by (camera, line) pair (full; camera c is then the run of
+// pair segments [c L, c L + L), its rows grouped by line).  full, cams and
+// lines run one block per camera and one per line, each reducing only its
+// own rows:
 //
 //   * a thread takes one row of the segment (the block loops in chunks of
 //     kBlock rows) and runs a scalar copy of the residual on forward-mode
@@ -57,10 +60,6 @@
 //   * the row's contributions (Hcc|gc|cost: 43 values; Hll|gl|cost: 21)
 //     are summed over the block by a warp-shuffle tree, then over the warps
 //     and the chunks in order, in registers and shared memory;
-//   * Wb (lm): each row of a camera block writes its 24 values straight
-//     to Wb[o]; the camera blocks then share out the plan's dropped rows,
-//     perm[offsets[C] ...), and write zeros there, so every element of Wb
-//     is written and no fill is needed;
 //   * W: each row of a camera block puts its 24 values in shared memory,
 //     and thread e of the block owns the elements e, e + kBlock, ... of
 //     W[c]: it sums the rows of pair (c, l) in plan order and writes the
@@ -72,6 +71,39 @@
 //     for the next launch (a counter that the wrapper keeps per stream, and
 //     per launch inside a CUDA graph: two launches in flight at once must
 //     never share one).
+//
+// lm is laid out for the large map, where a line has ~8.5 valid rows of
+// its bucket's 32 and a camera ~113: one block a line would idle ~93 % of
+// its threads and run a block reduction for 8 rows, and a row's residual
+// would be taken three times (camera block 6 + 4 tangents, line block 4).
+// Two launches instead:
+//
+//   * the row pass (lm_rows_kernel): one thread a kept row of the line
+//     plan, so a block has 128 rows whatever the lines' lengths.  A row
+//     runs the residual on its 4 line tangents (Jl, the Huber weight, its
+//     Hll|gl terms: 14 values, Hll's upper triangle), then on its 6
+//     camera tangents for its Wb = Jc^T Jl.  Hll|gl are summed over each
+//     line's run in the block by a segmented warp scan and the earlier
+//     warps' tails; a line inside one block is written there, a line
+//     across blocks leaves a partial a side in the buffer's scratch.  The
+//     block's Wb rows and the plan's dropped rows in its range (zeros: the
+//     buckets' padding, contiguous in line-major order) go out through
+//     shared memory, element by element, so neighbouring threads write
+//     neighbouring bytes.  Wb heads lm's buffer, so each 96-byte row (f32)
+//     fills three whole 32-byte sectors;
+//   * the camera pass (lm_cams_kernel): the cams variant's camera blocks
+//     over the camera plan (the residual on the 6 camera tangents only,
+//     Hcc|gc|cost by block_column_sums, the cost by the ticket); then
+//     ceil(L / 128) blocks write the lines the row pass left: zeros for a
+//     line with no kept row, and for a line across row blocks its partials
+//     in block order.
+//
+// So a valid row's residual runs on 4 + 6 tangents in the row pass and on
+// 6 in the camera pass (one pass of 10 tangents spilled in float64).
+// Parking Jl in Wb for the camera pass to finish Wb instead, which saves
+// one 6-tangent pass, took the camera pass from 0.40 to 0.76 ms at the
+// map's shape on an H100 80GB HBM3 at 700 W (random 64-byte reads and
+// 96-byte writes over 335 MB).
 //
 // No atomics on values: the result is the same from run to run.  No
 // fast-math.  The kernel allocates nothing.
@@ -368,6 +400,8 @@ struct Args {
   T* Wb;
   T* cost_l;
   T* partial;
+  // lm: the line partials of the row blocks, (2 blocks, kLmLineCols)
+  T* line_part;
   int* tickets;
 };
 
@@ -444,7 +478,7 @@ __device__ void camera_block(const Args<T>& a, int c) {
 #pragma unroll
           for (int j = 0; j < 6; ++j) Jc[k][j] = r[k].d[j] * w_r * cf;
         }
-        if constexpr (kVariant == kFull || kVariant == kLm) {
+        if constexpr (kVariant == kFull) {
           Dual<T, 4> q[4];
           row_residual<T, 4, 6>(a.cam, a.line, cc, l, ob, a.baseline, q);
           const T lf = a.lfree[l];
@@ -453,18 +487,6 @@ __device__ void camera_block(const Args<T>& a, int c) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) Jl[k][j] = q[k].d[j] * w_r * lf;
         }
-      }
-      if constexpr (kVariant == kLm) {
-        T* w = a.Wb + static_cast<size_t>(o) * kPairCols;
-#pragma unroll
-        for (int i = 0; i < 6; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            T x = T(0);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) x += Jc[k][i] * Jl[k][j];
-            w[i * 4 + j] = x;
-          }
       }
     }
     T v[kCamCols];
@@ -511,15 +533,6 @@ __device__ void camera_block(const Args<T>& a, int c) {
       }
     }
     __syncthreads();
-  }
-  if constexpr (kVariant == kLm) {
-    // the dropped rows, shared out over the camera blocks: zeros
-    for (int k = a.row_off[a.C] + c * kBlock + t; k < a.O;
-         k += a.C * kBlock) {
-      T* w = a.Wb + static_cast<size_t>(a.row_perm[k]) * kPairCols;
-#pragma unroll
-      for (int j = 0; j < kPairCols; ++j) w[j] = T(0);
-    }
   }
   if (t < 36)
     a.Hcc[c * 36 + t] = acc;
@@ -614,12 +627,237 @@ __global__ void __launch_bounds__(kBlock) fused_eval_kernel(Args<T> a) {
   } else if constexpr (kVariant == kCams) {
     camera_block<T, kVariant>(a, b);
   } else {
+    static_assert(kVariant == kFull, "lm has kernels of its own");
     if (b < a.C)
       camera_block<T, kVariant>(a, b);
     else
       line_block<T, kVariant>(a, b - a.C);
   }
 }
+
+// ---------------------------------------------------------------------------
+// lm: the line-major evaluate, a row pass and a camera pass (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kLmLineCols = 14;  // Hll's upper triangle (10) | gl (4)
+
+// Writes the n x n symmetric block whose upper triangle is u to m.
+template <typename T, int n>
+__device__ __forceinline__ void write_symmetric(const T* u, T* m) {
+  int e = 0;
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+#pragma unroll
+    for (int j = i; j < n; ++j, ++e) {
+      m[i * n + j] = u[e];
+      m[j * n + i] = u[e];
+    }
+}
+
+// The row pass: block b takes the kept rows b kBlock ... of the line plan,
+// one a thread, so every thread of a full block has a row whatever the
+// lines' lengths.  A row's residual runs on the 4 line tangents (Jl, the
+// Huber weight, its Hll|gl terms), then on the 6 camera tangents for its
+// Wb = Jc^T Jl.  Hll|gl are summed over each line's run of rows in the
+// block (a segmented warp scan, then the earlier warps of the run); a line
+// inside one block is written here, the partials of a line that crosses
+// blocks go to line_part (the run holding the block's first row, then the
+// one holding its last) for lm_cams_kernel.  The block's Wb rows, its kept
+// rows' and the plan's dropped rows' (zeros), go out through shared memory
+// in one flat loop over (row, element), so neighbouring threads write
+// neighbouring elements.
+constexpr int kWbStride = kPairCols + 1;  // shared rows, no bank conflicts
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock) lm_rows_kernel(Args<T> a) {
+  __shared__ T s_tail[kWarps][kLmLineCols];
+  __shared__ int s_tail_l[kWarps];
+  __shared__ int s_head_l[kWarps];
+  __shared__ int s_row[kBlock];
+  __shared__ T s_wb[kBlock * kWbStride];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int w = t >> 5;
+  const int first = blockIdx.x * kBlock;
+  const int i = first + t;
+  const int kept = a.line_off[a.L];
+  T Jl[4][4], v[kLmLineCols];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) Jl[k][j] = T(0);
+#pragma unroll
+  for (int j = 0; j < kLmLineCols; ++j) v[j] = T(0);
+  T w_r = T(0);
+  int o = 0, c = 0;
+  int l = -1 - t;  // rows past the kept ones: a run of their own
+  bool valid = false;
+  if (i < kept) {
+    o = a.line_perm[i];
+    c = a.oc[o];
+    l = a.ol[o];
+    valid = row_valid(c, l, a.wv[o] > T(0), a.C, a.L);
+    if (valid) {
+      T ob[8];
+      load_obs(a.obs, o, ob);
+      Dual<T, 4> q[4];
+      row_residual<T, 4, 6>(a.cam, a.line, c, l, ob, a.baseline, q);
+      const T s = q[0].v * q[0].v + q[1].v * q[1].v + q[2].v * q[2].v +
+                  q[3].v * q[3].v;
+      T cost_i;
+      huber_weights(s, a.huber, &w_r, &cost_i);
+      const T lf = a.lfree[l];
+      T rw[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        rw[k] = q[k].v * w_r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Jl[k][j] = q[k].d[j] * w_r * lf;
+      }
+      int e = 0;
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = ii; jj < 4; ++jj, ++e) {
+          T x = T(0);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) x += Jl[k][ii] * Jl[k][jj];
+          v[e] = x;
+        }
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        T g = T(0);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) g += Jl[k][ii] * rw[k];
+        v[10 + ii] = g;
+      }
+    }
+  }
+  // segmented inclusive scan over the warp's rows of one line (a plan's
+  // rows are grouped by line, so a run is contiguous)
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const int lu = __shfl_up_sync(0xffffffffu, l, s);
+#pragma unroll
+    for (int j = 0; j < kLmLineCols; ++j) {
+      const T x = __shfl_up_sync(0xffffffffu, v[j], s);
+      if (lane >= s && lu == l) v[j] += x;
+    }
+  }
+  if (lane == 31) {
+    s_tail_l[w] = l;
+#pragma unroll
+    for (int j = 0; j < kLmLineCols; ++j) s_tail[w][j] = v[j];
+  }
+  if (lane == 0) s_head_l[w] = l;
+  __syncthreads();
+  if (i < kept && l >= 0 && l < a.L) {
+    const int s0 = a.line_off[l];
+    const int s1 = a.line_off[l + 1];
+    if (i == s1 - 1 || t == kBlock - 1) {  // the run's last row here
+      if (s_head_l[w] == l) {
+        for (int w2 = w - 1; w2 >= 0 && s_tail_l[w2] == l; --w2) {
+#pragma unroll
+          for (int j = 0; j < kLmLineCols; ++j) v[j] += s_tail[w2][j];
+          if (s_head_l[w2] != l) break;
+        }
+      }
+      if (s0 >= first && i == s1 - 1) {
+        write_symmetric<T, 4>(v, a.Hll + static_cast<size_t>(l) * 16);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a.gl[l * 4 + j] = v[10 + j];
+      } else {
+        T* part = a.line_part + static_cast<size_t>(blockIdx.x) * 2 *
+                                    kLmLineCols;
+        if (s0 < first)
+#pragma unroll
+          for (int j = 0; j < kLmLineCols; ++j) part[j] = v[j];
+        if (i < s1 - 1)
+#pragma unroll
+          for (int j = 0; j < kLmLineCols; ++j) part[kLmLineCols + j] = v[j];
+      }
+    }
+  }
+  const int n = a.O - first < kBlock ? a.O - first : kBlock;
+  if (t < n) s_row[t] = i < kept ? o : a.line_perm[i];
+  if (i < kept) {
+    T* wb = s_wb + t * kWbStride;
+    if (valid) {
+      T ob[8];
+      load_obs(a.obs, o, ob);
+      Dual<T, 6> r[4];
+      row_residual<T, 6, 0>(a.cam, a.line, c, l, ob, a.baseline, r);
+      const T cf = a.cfree[c];
+      T Jc[4][6];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < 6; ++j) Jc[k][j] = r[k].d[j] * w_r * cf;
+#pragma unroll
+      for (int ii = 0; ii < 6; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          T x = T(0);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) x += Jc[k][ii] * Jl[k][jj];
+          wb[ii * 4 + jj] = x;
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPairCols; ++j) wb[j] = T(0);
+    }
+  }
+  __syncthreads();
+  const int m = kept - first;  // the block's rows before m are kept
+  for (int e = t; e < n * kPairCols; e += kBlock) {
+    const int k = e / kPairCols;
+    const int j = e - k * kPairCols;
+    a.Wb[static_cast<size_t>(s_row[k]) * kPairCols + j] =
+        k < m ? s_wb[k * kWbStride + j] : T(0);
+  }
+}
+
+// Hll | gl of line l where lm_rows_kernel did not write them: zero for a
+// line with no kept row; for a line across row blocks b0 < b1, the run
+// ending block b0, then the runs starting blocks b0 + 1 ... b1, in order.
+template <typename T>
+__device__ void lm_line_combine(const Args<T>& a, int l) {
+  if (l >= a.L) return;
+  const int s0 = a.line_off[l];
+  const int s1 = a.line_off[l + 1];
+  const int b0 = s0 / kBlock;
+  const int b1 = (s1 - 1) / kBlock;
+  if (s0 < s1 && b0 == b1) return;
+  T v[kLmLineCols];
+#pragma unroll
+  for (int j = 0; j < kLmLineCols; ++j) v[j] = T(0);
+  if (s0 < s1) {
+    const T* part = a.line_part + static_cast<size_t>(b0) * 2 * kLmLineCols;
+#pragma unroll
+    for (int j = 0; j < kLmLineCols; ++j) v[j] = part[kLmLineCols + j];
+    for (int b = b0 + 1; b <= b1; ++b) {
+      part = a.line_part + static_cast<size_t>(b) * 2 * kLmLineCols;
+#pragma unroll
+      for (int j = 0; j < kLmLineCols; ++j) v[j] += part[j];
+    }
+  }
+  write_symmetric<T, 4>(v, a.Hll + static_cast<size_t>(l) * 16);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a.gl[l * 4 + j] = v[10 + j];
+}
+
+// The camera pass: C camera blocks (the cams variant's, over the camera
+// plan), then ceil(L / kBlock) blocks of line combines.  It runs after
+// lm_rows_kernel on the same stream.
+template <typename T>
+__global__ void __launch_bounds__(kBlock) lm_cams_kernel(Args<T> a) {
+  if (static_cast<int>(blockIdx.x) < a.C)
+    camera_block<T, kCams>(a, blockIdx.x);
+  else
+    lm_line_combine<T>(a, (blockIdx.x - a.C) * kBlock + threadIdx.x);
+}
+
+int lm_row_blocks(int O) { return (O + kBlock - 1) / kBlock; }
 
 template <typename T>
 int launch(int variant, const void* cam, const void* line, const void* obs,
@@ -649,6 +887,10 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
   a.line_off = static_cast<const int*>(line_off);
   a.tickets = static_cast<int*>(tickets);
   T* o = static_cast<T*>(out);
+  if (variant == kLm) {  // first: its rows start on 32-byte sectors
+    a.Wb = o;
+    o += static_cast<size_t>(O) * kPairCols;
+  }
   if (variant != kLines) {
     a.cost = o;
     o += 1;
@@ -667,14 +909,13 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
     a.W = o;
     o += static_cast<size_t>(C) * L * kPairCols;
   }
-  if (variant == kLm) {
-    a.Wb = o;
-    o += static_cast<size_t>(O) * kPairCols;
-  }
-  if (variant == kLines)
+  if (variant == kLines) {
     a.cost_l = o;
-  else
+  } else {
     a.partial = o;
+    o += C;
+  }
+  if (variant == kLm) a.line_part = o;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == kFull)
     fused_eval_kernel<T, kFull><<<C + L, kBlock, 0, s>>>(a);
@@ -682,10 +923,16 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
     fused_eval_kernel<T, kCams><<<C, kBlock, 0, s>>>(a);
   else if (variant == kLines)
     fused_eval_kernel<T, kLines><<<L, kBlock, 0, s>>>(a);
-  else if (variant == kLm)
-    fused_eval_kernel<T, kLm><<<C + L, kBlock, 0, s>>>(a);
-  else
+  else if (variant != kLm)
     return static_cast<int>(cudaErrorInvalidValue);
+  else {
+    if (O > 0) {
+      lm_rows_kernel<T><<<lm_row_blocks(O), kBlock, 0, s>>>(a);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    lm_cams_kernel<T><<<C + (L + kBlock - 1) / kBlock, kBlock, 0, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -697,8 +944,9 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
 //          W (C*L*24) | partial costs (C)
 //   cams   cost (1) | Hcc (C*36) | gc (C*6) | partial costs (C)
 //   lines  Hll (L*16) | gl (L*4) | per-line cost (L)
-//   lm     cost (1) | Hcc (C*36) | gc (C*6) | Hll (L*16) | gl (L*4) |
-//          Wb (O*24) | partial costs (C)
+//   lm     Wb (O*24) | cost (1) | Hcc (C*36) | gc (C*6) | Hll (L*16) |
+//          gl (L*4) | partial costs (C) | line partials
+//          (fused_eval_scratch: 2 x 14 a row block)
 // tickets: one int, 0 before the launch and 0 again after it, used by no
 // other launch in flight.  C, L >= 1.
 extern "C" int fused_eval_f32(int variant, const void* cam, const void* line,
@@ -725,4 +973,12 @@ extern "C" int fused_eval_f64(int variant, const void* cam, const void* line,
   return launch<double>(variant, cam, line, obs, oc, ol, wv, cfree, lfree,
                         baseline, huber, C, L, O, row_perm, row_off,
                         row_stride, line_perm, line_off, out, tickets, stream);
+}
+
+// Elements of the buffer past its outputs and partial costs: lm's line
+// partials, none for the other variants.
+extern "C" long long fused_eval_scratch(int variant, int C, int L, int O) {
+  (void)C;
+  (void)L;
+  return variant == kLm ? 2LL * kLmLineCols * lm_row_blocks(O) : 0;
 }

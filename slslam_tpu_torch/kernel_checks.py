@@ -48,6 +48,32 @@ K1_SHAPES = ((1600, 1, 81), (1600, 21, 81), (162, 42, 4),
 # and lines
 PLAN_SHAPES = ((1600, 81), (1600, 20 * 81), (162, 4),
                (REFINE_O, REFINE_C), (REFINE_O, REFINE_L))
+# The large map's line-major problem at full width
+# (tools/torch_large_map_bench.py --cams 8192 --lines-per-cam 16, phase 9
+# (a)): C cameras, L lines of kL = 32 rows, 929,796 valid rows, so ~73 %
+# of the flat rows are padding
+MAP_C, MAP_L, MAP_O, MAP_VALID = 8192, 109_147, 3_492_704, 929_796
+MAP_PAD = 1.0 - MAP_VALID / MAP_O
+# (O, P) of the larger plans the paths build: the large map's lines and
+# cameras, the scaling tool's (cam, line) pairs (phase 10 (d)), the
+# interactive bench window's pairs (phase 7) and the loop-closure PGO's
+# largest V^2 plan (phase 6: 128 edges x 4 blocks over 32 poses)
+PLAN_LARGE_SHAPES = ((MAP_O, MAP_L), (MAP_O, MAP_C), (16_384, 32_768),
+                     (2048, 6144), (512, 32 * 32))
+PLAN_LARGE_ROLES = ("map lines", "map cameras", "scaling tool pairs",
+                    "interactive window pairs", "LC PGO V^2 blocks")
+# (O, P) -> the plan's path there, on either side of each path's limit
+# (csrc/segment_sum.cu: kSegmentBlocksWork = 2^21 >= (P + 1) O for one
+# block a segment, kSmallMaxRows = 8192 >= O and kSmallMaxSegments =
+# 65,535 >= P for one block)
+PLAN_BOUNDARY_PATHS = {(2048, 1023): "segment_blocks",
+                       (2048, 1024): "one_block",
+                       (30_000, 68): "segment_blocks",
+                       (30_000, 69): "tiles",
+                       (8192, 65_535): "one_block",
+                       (8193, 65_535): "tiles",
+                       (8192, 65_536): "tiles"}
+PLAN_BOUNDARY_SHAPES = tuple(PLAN_BOUNDARY_PATHS)
 # (C, L, O) of each K2 variant on the main path: the window BA, the VO
 # polish (2 frames x Lp rows over 4 cameras), lines-GN over the window,
 # the refine's line-major evaluate
@@ -242,23 +268,60 @@ def plan_case(O, P, device, seed=1):
     return torch.as_tensor(key, device=device)
 
 
-def check_plans(device, shapes=PLAN_SHAPES):
-    """segment_plan on ``device`` against its twin on CPU copies at
-    ``shapes`` (O, P).  Returns [((O, P), max abs difference)]; raises
-    unless perm and offsets are identical."""
+def plan_adversarial_cases(seed=7):
+    """[(name, int32 key (O,) as numpy, P)]: keys a plan must survive --
+    negative keys and keys >= P, every row dropped, one segment, P = 1,
+    P >> O (the PGO's V^2 plans), trailing empty segments, sorted and
+    reversed keys, no rows, and O a multiple of no tile or warp."""
+    rng = np.random.default_rng(seed)
+
+    def keys(lo, hi, O):
+        return rng.integers(lo, hi, O).astype(np.int32)
+
+    return [
+        ("negative and past P", keys(-40, 340, 5000), 300),
+        ("every row dropped", np.where(rng.random(3000) < 0.5, -1,
+                                       77).astype(np.int32), 77),
+        ("one segment", np.full(2999, 5, np.int32), 9),
+        ("P = 1", keys(-1, 3, 4097), 1),
+        ("P >> O", keys(0, 40 * 40, 44), 40 * 40),
+        ("P >> O, large", keys(-2, 200_000, 700), 200_000),
+        ("trailing empty segments", keys(0, 50, 12_345), 4000),
+        ("sorted", np.sort(keys(-3, 90, 9001)), 88),
+        ("reversed", np.sort(keys(0, 1000, 20_001))[::-1].copy(), 1000),
+        ("no rows", np.zeros(0, np.int32), 6),
+        ("odd sizes", keys(-1, 130, 33_333), 129),
+    ]
+
+
+def check_plans(device, shapes=PLAN_SHAPES, cases=None):
+    """segment_plan on ``device`` against its twin on CPU copies: on
+    plan_case's key at each of ``shapes`` (O, P), or on ``cases`` [(name,
+    key, P)].  On the card the plan runs on the path that (O, P) picks and
+    on every path that can take (O, P) (kernels.plan_paths), each launched
+    twice.  Returns [(name or (O, P), max abs difference)]; raises unless
+    every launch's perm and offsets are identical to the twin's."""
+    if cases is None:
+        cases = [((O, P), plan_case(O, P, device), P) for O, P in shapes]
     out = []
-    for (O, P) in shapes:
-        key = plan_case(O, P, device)
-        got = kernels.segment_plan(key, P)
+    for name, key, P in cases:
+        key = torch.as_tensor(key, device=device)
         ref = kernels.segment_plan_twin(key.cpu(), P)
+        paths = (kernels.plan_paths(key.shape[0], P) if key.is_cuda
+                 else [None])
         diff = 0
-        for name in ("perm", "offsets"):
-            a, b = getattr(got, name).cpu(), getattr(ref, name)
-            if not torch.equal(a, b):
-                raise AssertionError(f"segment_plan {(O, P)}: {name} differs "
-                                     "from the twin")
-            diff = max(diff, int(torch.max(torch.abs(a - b))))
-        out.append(((O, P), diff))
+        for path in paths:
+            for _ in range(2):
+                got = kernels.segment_plan(key, P, path=path)
+                for field in ("perm", "offsets"):
+                    a, b = getattr(got, field).cpu(), getattr(ref, field)
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"segment_plan {name} path={path}: {field} "
+                            "differs from the twin")
+                    if a.numel():
+                        diff = max(diff, int(torch.max(torch.abs(a - b))))
+        out.append((name, diff))
     return out
 
 
@@ -298,7 +361,7 @@ def check_k2(dtype, device, variant="full", shape=None, pad_frac=0.008):
     if variant == "lm" and args["obs"].is_cuda:
         C, L, O = (args["cam_wt"].shape[0], args["line_orth"].shape[0],
                    args["obs"].shape[0])
-        n = 1 + C * 42 + L * 20 + O * 24 + C
+        n = kernels.fused_eval_numel("lm", C, L, O)
         torch.cuda.empty_cache()            # the NaN block: the only free one
         nan_ptr = torch.full((n,), float("nan"), dtype=dtype,
                              device=device).data_ptr()

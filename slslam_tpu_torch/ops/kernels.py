@@ -9,9 +9,9 @@ K2 in every LM iteration.  On the main path K1 sums lines-GN's trial cost
 and the refine PCG's per-camera rows (``schur_cg._solve_step_cg``).
 Source: ``csrc/segment_sum.cu``.
 
-K2 ``fused_eval`` — the BA evaluate in one launch: gather, residual,
-forward-mode Jacobian columns, Huber weights, NaN-proof masks, and the
-reductions, in four variants (``VARIANTS``):
+K2 ``fused_eval`` — the BA evaluate in one launch (``lm``: two): gather,
+residual, forward-mode Jacobian columns, Huber weights, NaN-proof masks,
+and the reductions, in four variants (``VARIANTS``):
 
 * ``full``: cost, Hcc, Hll, gc, gl and the cam-line coupling W (the window
   BA, ``schur_ba._eval_system``);
@@ -21,7 +21,8 @@ reductions, in four variants (``VARIANTS``):
   fixed (lines-GN's evaluate);
 * ``lm``: cost, Hcc, Hll, gc, gl and the cam-line coupling per row, Wb
   (O,6,4) — the global refine's line-major evaluate
-  (``schur_cg._eval_system_lm``).
+  (``schur_cg._eval_system_lm``): a row pass over the line plan (Wb,
+  Hll, gl; zeros on the dropped rows), then a camera pass (Hcc, gc, cost).
 
 Replaces ``fused_eval_pallas`` with its two kernels
 (pallas_kernels.py:278-428).  Source: ``csrc/fused_eval.cu``.  K2 decodes
@@ -42,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -114,8 +116,14 @@ def _bind(libs):
         fn.argtypes = [i, p, p, p, p, p, p, p, p, d, d, i, i, i, p, p, i, p,
                        p, p, p, p]
         fn.restype = i
-    k1.seg_plan.argtypes = [p, i, i, p, p, p]
+    k1.seg_plan.argtypes = [p, i, i, p, p, p, i, p]
     k1.seg_plan.restype = i
+    k1.seg_plan_path.argtypes = [i, i, i]
+    k1.seg_plan_path.restype = i
+    k1.seg_plan_scratch.argtypes = [i, i, i]
+    k1.seg_plan_scratch.restype = ctypes.c_longlong
+    k2.fused_eval_scratch.argtypes = [i, i, i, i]
+    k2.fused_eval_scratch.restype = ctypes.c_longlong
 
 
 def load_library():
@@ -239,24 +247,58 @@ def segment_plan_twin(key, num_segments):
     return SegmentPlan(key, perm, offsets)
 
 
-def segment_plan(key, num_segments):
+PLAN_PATHS = {None: 0, "one_block": 1, "tiles": 2, "segment_blocks": 3}
+
+
+def segment_plan(key, num_segments, path=None):
     """The plan of an (O,) int32 key over P segments.  CPU tensors take the
-    twin; CUDA tensors launch K1's plan kernel (one block per segment,
-    integer-only, deterministic)."""
+    twin; CUDA tensors launch K1's plan on one of three paths
+    (csrc/segment_sum.cu): one block a segment for small (P + 1) O, a
+    stable LSD radix sort in one block in shared memory for small (O, P),
+    else the sort in tiles (three launches a pass and one for the offsets,
+    with a scratch of its own).  Integer work only, the same bytes on every
+    path.  ``path``: None picks by (O, P) alone; "segment_blocks",
+    "one_block" or "tiles" forces one (tests compare them; a path raises
+    where it cannot take (O, P))."""
     if _device_kind("segment_plan", key) == "cpu":
         return segment_plan_twin(key, num_segments)
     if key.dim() != 1 or key.dtype != torch.int32:
         raise TypeError("segment_plan: key must be a 1-D int32 tensor")
+    if path not in PLAN_PATHS:
+        raise ValueError(f"segment_plan: unknown path {path!r}")
     _check_cuda("segment_plan", key.device, key=key)
     O, P = key.shape[0], num_segments
+    lib = load_library()["segment_sum"]
+    if lib.seg_plan_path(O, P, PLAN_PATHS[path]) < 0:
+        raise ValueError(f"segment_plan: the {path} path cannot take "
+                         f"(O, P) = {(O, P)}")
     perm = torch.empty(O, dtype=torch.int32, device=key.device)
     offsets = torch.empty(P + 1, dtype=torch.int32, device=key.device)
-    lib = load_library()["segment_sum"]
+    n = lib.seg_plan_scratch(O, P, PLAN_PATHS[path])
+    scratch = (torch.empty(n, dtype=torch.int32, device=key.device) if n
+               else None)
     err = lib.seg_plan(key.data_ptr(), O, P, perm.data_ptr(),
-                       offsets.data_ptr(), _stream(key.device))
+                       offsets.data_ptr(),
+                       None if scratch is None else scratch.data_ptr(),
+                       PLAN_PATHS[path], _stream(key.device))
     _raise_on("segment_plan", err)
     _count("segment_plan", (O, P))
     return SegmentPlan(key, perm, offsets)
+
+
+def plan_paths(O, P):
+    """The paths ``segment_plan`` can take at (O, P) on the card: None (the
+    one (O, P) picks), then each forced path that can."""
+    lib = load_library()["segment_sum"]
+    return [None] + [p for p in ("segment_blocks", "one_block", "tiles")
+                     if lib.seg_plan_path(O, P, PLAN_PATHS[p]) > 0]
+
+
+def plan_path(O, P):
+    """The path ``segment_plan`` picks at (O, P) on the card."""
+    lib = load_library()["segment_sum"]
+    names = {v: k for k, v in PLAN_PATHS.items() if k is not None}
+    return names[lib.seg_plan_path(O, P, 0)]
 
 
 class BAPlan(NamedTuple):
@@ -504,8 +546,8 @@ def fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     ``plan``: ``ba_plan(obs_cam, obs_line, w_valid, C, L, variant)``, built
     once per solve; without one the wrapper builds it.  CPU tensors take
     the twin; CUDA tensors launch K2 (Huber or plain least squares), one
-    launch per call, deterministic: orth lines directly, aid and asd lines
-    through ``fused_eval_chart``."""
+    launch per call (``lm``: a row pass and a camera pass), deterministic:
+    orth lines directly, aid and asd lines through ``fused_eval_chart``."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown fused_eval variant {variant!r}")
     if _device_kind("fused_eval", cam_wt) == "cpu":
@@ -520,6 +562,28 @@ def fused_eval(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     return _fused_eval_orth(cam_wt, line_orth, obs, obs_cam, obs_line,
                             w_valid, cam_free_f, line_free_f, baseline,
                             huber_delta, robust, line_param, variant, plan)
+
+
+def _k2_parts(variant, C, L, O):
+    """{part: (shape)} of K2's output buffer in its order (csrc/
+    fused_eval.cu, above fused_eval_f32): the outputs and the partial
+    costs."""
+    cams = {"cost": (), "Hcc": (C, 6, 6), "gc": (C, 6)}
+    lines = {"Hll": (L, 4, 4), "gl": (L, 4)}
+    return {"full": {**cams, **lines, "W": (C, L, 6, 4), "partial": (C,)},
+            "cams": {**cams, "partial": (C,)},
+            "lines": {**lines, "cost_l": (L,)},
+            "lm": {"W": (O, 6, 4), **cams, **lines,
+                   "partial": (C,)}}[variant]
+
+
+def fused_eval_numel(variant, C, L, O):
+    """Elements of the buffer one K2 launch of ``variant`` writes into:
+    its parts and the kernel's scratch past them (``lm``'s line
+    partials)."""
+    lib = load_library()["fused_eval"]
+    return (sum(map(math.prod, _k2_parts(variant, C, L, O).values()))
+            + lib.fused_eval_scratch(VARIANTS.index(variant), C, L, O))
 
 
 def _fused_eval_orth(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
@@ -562,13 +626,10 @@ def _fused_eval_orth(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
         return (None, None) if p is None else (p.perm.data_ptr(),
                                                p.offsets.data_ptr())
 
-    cams_part = (1, C * 36, C * 6)
-    lines_part = (L * 16, L * 4)
-    sizes = {"full": cams_part + lines_part + (C * L * 24, C),
-             "cams": cams_part + (C,),
-             "lines": lines_part + (L,),
-             "lm": cams_part + lines_part + (O * 24, C)}[variant]
-    buf = torch.empty(sum(sizes), dtype=cam_wt.dtype, device=dev)
+    shapes = _k2_parts(variant, C, L, O)
+    sizes = [math.prod(shape) for shape in shapes.values()]
+    buf = torch.empty(fused_eval_numel(variant, C, L, O),
+                      dtype=cam_wt.dtype, device=dev)
     huber = float(huber_delta) if robust else -1.0
     lib = load_library()["fused_eval"]
     fn = getattr(lib, f"fused_eval_{_suffix(cam_wt.dtype)}")
@@ -583,14 +644,8 @@ def _fused_eval_orth(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
              ticket.data_ptr(), ctypes.c_void_p(stream.cuda_stream))
     _raise_on("fused_eval", err)
     _count(f"fused_eval/{variant}", (C, L, O))
-    parts = torch.split(buf, sizes)
-    if variant == "lines":
-        Hll, gl, cost_l = parts
-        return Hll.view(L, 4, 4), gl.view(L, 4), cost_l
-    cost, Hcc, gc = parts[0][0], parts[1].view(C, 6, 6), parts[2].view(C, 6)
-    if variant == "cams":
-        return cost, Hcc, gc
-    Hll, gl, W = parts[3].view(L, 4, 4), parts[4].view(L, 4), parts[5]
-    if variant == "lm":
-        return cost, Hcc, Hll, gc, gl, W.view(O, 6, 4)
-    return cost, Hcc, Hll, gc, gl, W.view(C, L, 6, 4)
+    parts = {name: part.view(shape) for (name, shape), part in zip(
+        shapes.items(), torch.split(buf[:sum(sizes)], sizes))}
+    names = {"lines": ("Hll", "gl", "cost_l"), "cams": ("cost", "Hcc", "gc")
+             }.get(variant, ("cost", "Hcc", "Hll", "gc", "gl", "W"))
+    return tuple(parts[name] for name in names)

@@ -1,12 +1,15 @@
 """The CUDA kernels against their plain twins on the card (opt-in).
 
 The checks of chip_smoke.py phases 1 and 2 (slslam_tpu_torch/
-kernel_checks.py, tolerances stated there), as tests: the segment plan,
+kernel_checks.py, tolerances stated there), as tests: the segment plan
+(on every path that can take a shape, on adversarial keys, on either side
+of each path's limit, at the large map's shapes and inside a CUDA graph),
 K1 with and without a plan, and every K2 variant launched twice (the two
 launches must agree bit for bit; ``lm``'s dropped Wb rows must come out
-exactly zero), then on two streams at once and from a CUDA graph (each
-launch keeps its own last-block counter, so every result equals an eager
-launch's bit for bit); the line-major plan's shapes; and a short global
+exactly zero; ``lm`` also at the large map's padding share), then on two
+streams at once and from a CUDA graph (each launch keeps its own
+last-block counter, so every result equals an eager launch's bit for
+bit); the line-major plan's shapes; and a short global
 refine on the card against the same refine on the CPU; and the gaps of
 the prior-edge window solve and of a 1-round refine, card against CPU,
 beside what rounding alone does to the CPU's result; K2 with aid and asd
@@ -49,6 +52,71 @@ def test_segment_plan_kernel_on_gpu(cuda_device):
     before = kernels.launch_counts["segment_plan"]
     kernel_checks.check_plans(cuda_device)
     assert kernels.launch_counts["segment_plan"] > before
+
+
+PLAN_CASES = kernel_checks.plan_adversarial_cases()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(PLAN_CASES)),
+                         ids=[name for name, _, _ in PLAN_CASES])
+def test_segment_plan_adversarial_keys_on_gpu(cuda_device, case):
+    """The plan on every path that can take the key's (O, P), each
+    launched twice, equal to the twin bit for bit."""
+    kernel_checks.check_plans(cuda_device, cases=[PLAN_CASES[case]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", kernel_checks.PLAN_BOUNDARY_SHAPES)
+def test_segment_plan_paths_at_their_boundary_on_gpu(cuda_device, shape):
+    """Each path takes (O, P) up to its limits and no further; every path
+    that can take a key gives the same bytes, the twin's."""
+    O, P = shape
+    assert kernels.plan_path(O, P) == kernel_checks.PLAN_BOUNDARY_PATHS[shape]
+    paths = kernels.plan_paths(O, P)
+    assert "tiles" in paths
+    kernel_checks.check_plans(cuda_device, [shape])
+    key = kernel_checks.plan_case(O, P, cuda_device)
+    ref = kernels.segment_plan(key, P, path="tiles")
+    for path in ("segment_blocks", "one_block"):
+        if path in paths:
+            got = kernels.segment_plan(key, P, path=path)
+            assert torch.equal(got.perm, ref.perm)
+            assert torch.equal(got.offsets, ref.offsets)
+        else:
+            with pytest.raises(ValueError):
+                kernels.segment_plan(key, P, path=path)
+
+
+@pytest.mark.gpu
+def test_segment_plan_large_shapes_on_gpu(cuda_device):
+    """The plan at the large map's, the scaling tool's, the interactive
+    window's and the PGO's shapes, and inside a CUDA graph (the tiles'
+    scratch comes from the caller), equal to the twin."""
+    kernel_checks.check_plans(cuda_device, kernel_checks.PLAN_LARGE_SHAPES)
+    O, P = kernel_checks.PLAN_LARGE_SHAPES[2]
+    key = kernel_checks.plan_case(O, P, cuda_device)
+    ref = kernels.segment_plan_twin(key.cpu(), P)
+    kernels.segment_plan(key, P)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernels.segment_plan(key, P)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured.perm.cpu(), ref.perm)
+    assert torch.equal(captured.offsets.cpu(), ref.offsets)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lm_at_map_padding_on_gpu(cuda_device, dtype):
+    """K2 ``lm`` at the large map's padding share (kL = 32, ~73 % of the
+    rows padding, whole padding buckets among them): within K2_TOL of its
+    twin, bit for bit twice, exact zeros on the dropped rows."""
+    C, L, kL = 512, 4096, 32
+    kernel_checks.check_k2(dtype, cuda_device, "lm", (C, L, L * kL),
+                           kernel_checks.MAP_PAD)
 
 
 @pytest.mark.gpu

@@ -51,10 +51,13 @@ HALF_W = 327.783 / 406.05   # normalized image half-extent (parameter.h:43-52)
 HALF_H = 237.172 / 406.05
 BASELINE = 0.12
 HUBER_DELTA = 1.0 / 406.05
-# the kernels of a solve, by the name their launches carry in a profile
-KERNEL_NAMES = {"segment_plan": "seg_plan_kernel",
-                "segment_sum": "seg_sum_kernel",
-                "fused_eval/lm": "fused_eval_kernel"}
+# the kernels of a solve, by the names their launches carry in a profile
+# (the plan's paths and passes and lm's two passes are several kernels)
+KERNEL_NAMES = {"segment_plan": ("plan_segments_kernel", "plan_small_kernel",
+                                 "plan_hist_kernel", "plan_scan_kernel",
+                                 "plan_scatter_kernel", "plan_offsets_kernel"),
+                "segment_sum": ("seg_sum_kernel",),
+                "fused_eval/lm": ("lm_rows_kernel", "lm_cams_kernel")}
 
 
 # ---------------------------------------------------------------------------
@@ -326,27 +329,37 @@ def profile_solve(run, device, wall):
     ``wall`` seconds: the device's busy seconds over that wall (the
     profiler's CPU activity stretches the profiled run's own wall; as
     profile_replay.device_profile measures it) and each hand-written
-    kernel's device seconds and launches (torch.profiler)."""
+    kernel's device seconds, its wrapper calls (``launches``, as
+    kernels.launch_counts counts them), the device time of one call, and
+    the device kernels those calls launched (torch.profiler; a call of the
+    plan or of K2 ``lm`` launches several)."""
     import torch
     from torch.autograd import DeviceType
     from profile_replay import busy_seconds
+    from slslam_tpu_torch.ops import kernels
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     _sync(device)
+    before = dict(kernels.launch_counts)
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         run()
         _sync(device)
     profiled_wall = time.perf_counter() - t0
+    calls = {k: n - before[k] for k, n in kernels.launch_counts.items()}
     ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = busy_seconds([(e.time_range.start * 1e-6,
                           e.time_range.end * 1e-6) for e in ev])
     kern = {}
-    for name, tag in KERNEL_NAMES.items():
-        mine = [e.time_range.elapsed_us() * 1e-6 for e in ev if tag in e.name]
-        kern[name] = {"device_s": float(np.sum(mine)), "launches": len(mine),
-                      "mean_device_ms": (1e3 * float(np.mean(mine))
-                                         if mine else None)}
+    for name, tags in KERNEL_NAMES.items():
+        mine = [e.time_range.elapsed_us() * 1e-6 for e in ev
+                if any(tag in e.name for tag in tags)]
+        kern[name] = {"device_s": float(np.sum(mine)),
+                      "launches": calls[name],
+                      "mean_device_ms": (1e3 * float(np.sum(mine))
+                                         / calls[name]
+                                         if calls[name] else None),
+                      "device_kernels": len(mine)}
     return {"wall_s": wall, "profiled_wall_s": profiled_wall,
             "device_busy_s": busy, "device_busy_share": busy / wall,
             "device_ops": len(ev), "kernels": kern}
