@@ -15,10 +15,16 @@ Phases, each printing one JSON line:
    blocks), on either side of each path's limit and on adversarial keys
    (``kernel_checks.plan_adversarial_cases``); ``segment_sum`` with and
    without a plan against its twin on CPU copies, float32 and float64, at
-   the shapes of the replay and of the refine's PCG; and
+   the replay's shapes and at the refine's rows by camera; and
    ``assemble`` (the port of ``assemble_pallas``: three K1 sums, on no
    main path) against its plain version at the window's shape, checked
-   and timed;
+   and timed; K3 ``schur_matvec`` (its line pass, its camera pass as the
+   matvec and as the right-hand side) and K4 ``schur_jacobi`` at the
+   refine's, the loop-closure refine's and the large map's shapes
+   (``kernel_checks.SCHUR_SHAPES``) against their twins in float32 and
+   float64, launched twice bit for bit, and timed as below, the twin being
+   the JAX package's einsum chain (a later phase that launched them at one
+   of these cases reuses its check and times);
 2. K2 ``fused_eval``, every variant (full, cams, lines, lm) at its
    main-path shape against its twin, float32 and float64, a repeat launch
    that must agree bit for bit; ``lm``'s first launch writes into memory
@@ -33,14 +39,16 @@ Phases, each printing one JSON line:
    The plan is timed at each shape the main path builds (the window's line
    and (cam, line) pair plans, the VO polish's camera plan, a refine
    solve's camera and line plans) and at the larger plans' shapes, and K1
-   at lines-GN's trial cost and the PCG's two camera sums; the shapes
+   at lines-GN's trial cost and at the refine's rows by camera (6 and 36
+   lanes, on no path since K3 and K4 sum them); the shapes
    after the first are listed under ``shapes`` in the kernel's record;
 3. slice parity in float64: 60 house frames on CUDA (kernels) and on the
    CPU (twins), fed the same Gumbel noise: identical keyframes and RANSAC
    scores, trajectories within 1e-6 m, every replay variant of K2
    launched; then the global refine of that replay (``method="cg"``, three
    rounds, the bench's) on CUDA and on the CPU from the same trajectory:
-   the same LM iterations, poses within 1e-6 m, K2 ``lm`` launched;
+   the same LM iterations, poses within 1e-6 m, K2 ``lm``, K3 and K4
+   launched;
 4. the slice at full size: BatchSlam on CUDA in float32 with the bench's
    configuration, 400 frames of render seed 4, timed after a 20-frame
    warm-up: 400 keyframes, 74 landmarks, finite poses, raw ATE <= 0.55 m
@@ -53,9 +61,10 @@ Phases, each printing one JSON line:
    CG path, the final cost below the initial one, keyframe 0 at identity,
    refined ATE <= 0.01 m (the JAX package's TPU record: 0.0016-0.0024 m);
    K2 ``lm`` launches == the CG solves' LM iterations (the staged
-   lines-only solve included), K1 launches == 2 x LM iterations + PCG
-   iterations (the matvec, the right-hand side and the preconditioner),
-   two plans per solve, no torch.func Jacobian on CUDA tensors.  It prints
+   lines-only solve included), K3's line and camera passes each == LM +
+   PCG iterations (a matvec a PCG iteration; the back-substitution and
+   the right-hand side an LM iteration), K4 == LM iterations, no K1 (no
+   priors), two plans per solve, no torch.func Jacobian on CUDA tensors.  It prints
    the wall, LM and PCG iterations, (O, kL, kC), raw and refined ATE and
    the replay + refine keyframes per second of this seed.
 6. loop-closure mode at full size: bench.py's lc workload (the village,
@@ -64,7 +73,7 @@ Phases, each printing one JSON line:
    refine, as ``BENCH_MODE=lc`` drives it: at least 7 loop closures (the
    JAX package's documented gate), every merged track on one world
    segment, final ATE below the odometry ATE; K2 ``cams``, ``full`` and
-   ``lm`` and K1 each launched in the post-pass; a second post-pass over
+   ``lm``, K1, K3 and K4 each launched in the post-pass; a second post-pass over
    the same replay and descriptors repeats bit for bit (trajectory,
    closures, merges).  Then the post-pass in f64 on that replay, CUDA
    against CPU, both fed the same span noise: identical closures, merges
@@ -110,11 +119,13 @@ Phases, each printing one JSON line:
    JSON logged, its final cost and ``rpe_final_m`` within LM_COST_RTOL /
    LM_RPE_RTOL (relative) of a float64 solve of the same problem on the
    card,
-   ``rpe_final_m < rpe_init_m``, finite values, two plans a solve, then
+   ``rpe_final_m < rpe_init_m``, finite values, two plans a solve, K2
+   ``lm``, K3 and K4 launched, then
    every kernel at every shape the run launched it at (role
    "large_map"); (b) the large map at LM_PARITY in float64, card against
    CPU: at LM_PARITY_ITERS the same LM and PCG iterations, cameras within
-   1e-6, final cost within 1e-9 relative (at the tool's 30 x 100
+   1e-6, final cost within 1e-9 relative, K3 and K4 launched on the card
+   (at the tool's 30 x 100
    iterations the gaps are logged: rounding alone moves a solve that
    long by ~6e-6); (c) tools/torch_param_study.py's ``run_one``,
    orth and aid, 0.2 px, window 10, STUDY_FRAMES frames, f32, its result
@@ -182,6 +193,12 @@ GRAPH_LAUNCHES = 50
 TIMING_BUDGET_MS = 2000.0
 K1_SOURCE = "slslam_tpu_torch/csrc/segment_sum.cu"
 K2_SOURCE = "slslam_tpu_torch/csrc/fused_eval.cu"
+K34_SOURCE = "slslam_tpu_torch/csrc/schur_cg.cu"
+# what K3's passes and K4 replace: the XLA einsums of the JAX package's
+# PCG matvec and SCHUR_JACOBI blocks (it wrote no Pallas kernel for them)
+K34_REPLACES = {"schur_matvec/line": "slslam_tpu/ops/schur_cg.py:198",
+                "schur_matvec/cam": "slslam_tpu/ops/schur_cg.py:198",
+                "schur_jacobi": "slslam_tpu/ops/schur_cg.py:221"}
 JAC_HELPERS = ("lba_residual_jac_batch", "lba_residual_jac_cam_batch",
                "lba_residual_jac_line_batch")
 REFINE_ROUNDS = 3
@@ -362,7 +379,15 @@ def ptxas_summary(reports):
                 lm = re.search(r"lm_(rows|cams)_kernelI([fd])E", mangled)
                 k1 = re.search(r"seg_sum_kernelI([fd])E", mangled)
                 plan = re.search(r"plan_(\w+?)_kernel", mangled)
-                if k2:
+                k34 = re.search(r"schur_(line|cam|jacobi)_kernelI([fd])Li"
+                                r"(\d+)E(Lb([01])E)?", mangled)
+                if k34:
+                    kind = {"line": "schur_matvec/line",
+                            "cam": "schur_matvec/cam",
+                            "jacobi": "schur_jacobi"}[k34[1]]
+                    rhs = "/rhs" if k34[5] == "1" else ""
+                    name = f"{kind}{rhs}/{dtypes[k34[2]]}/G{k34[3]}"
+                elif k2:
                     name = (f"fused_eval/{VARIANTS[int(k2[2])]}"
                             f"/{dtypes[k2[1]]}")
                 elif lm:
@@ -404,6 +429,7 @@ def phase1(dev, rec):
     import torch
     from slslam_tpu_torch import kernel_checks as kc
     from slslam_tpu_torch.ops import kernels
+    t_phase = time.perf_counter()
     out = {"phase": 1,
            "plans": {str(s): d for s, d in kc.check_plans(dev)}}
     # the plan, every path that can take each shape, at the larger plans'
@@ -420,7 +446,7 @@ def phase1(dev, rec):
                                                 "max_abs_err": max_abs}
 
     # the plan at every shape the main path builds, K1 at lines-GN's trial
-    # cost and at the PCG's two camera sums
+    # cost and at the refine's rows by camera
     roles = ("window and lines-GN lines", "window (cam, line) pairs",
              "VO polish cameras", "refine cameras", "refine lines")
     for role, (O, P) in zip(roles, kc.PLAN_SHAPES):
@@ -434,8 +460,9 @@ def phase1(dev, rec):
             max_abs_err=float(out["plans_large"][str((O, P))]),
             **plan_times(dev, O, P)))
 
-    k1_roles = ("lines-GN trial cost", None, None, "refine PCG matvec",
-                "refine PCG preconditioner")
+    k1_roles = ("lines-GN trial cost", None, None,
+                "refine rows by camera, 6 lanes (on no path)",
+                "refine rows by camera, 36 lanes (on no path)")
     for role, (O, D, P) in zip(k1_roles, kc.K1_SHAPES):
         if role is None:
             continue
@@ -461,11 +488,28 @@ def phase1(dev, rec):
         name: [dict(shape=r["shape"], **{f: r[f] for f in fields})
                for r in [rec[name]] + rec[name]["shapes"]]
         for name in ("segment_plan", "segment_sum")}
+    # K3 and K4 at the refine's, the loop-closure refine's and the map's
+    # shapes: checked in float32 and float64, then timed
+    t0 = time.perf_counter()
+    for where, shape in kc.SCHUR_SHAPES.items():
+        errs, times = schur_checks(dev, shape, kc.SCHUR_PADS[where])
+        out[f"schur_{where}"] = errs
+        for name in kernels.SCHUR_KERNELS:
+            add_shape(rec[name], dict(
+                shape=list(shape), role=where, max_abs_err=max(
+                    m for k, (_, m) in errs["float32"].items()
+                    if k.startswith(name + " ")), **times[name]))
+    out["times_float32"]["schur"] = {
+        name: [dict(shape=r["shape"], **{f: r[f] for f in fields})
+               for r in [rec[name]] + rec[name]["shapes"]]
+        for name in kernels.SCHUR_KERNELS}
+    out["schur_check_and_time_s"] = time.perf_counter() - t0
     # without a plan the wrapper builds one first: two launches
     O, D, P = kc.K1_SHAPES[0]
     vals, idx = kc.k1_case(O, D, P, torch.float32, dev)
     out["segment_sum_no_plan_ms"] = cuda_ms(
         lambda: kernels.segment_sum(vals, idx, P))
+    out["phase_1_s"] = time.perf_counter() - t_phase
     log(out)
 
 
@@ -530,6 +574,64 @@ def k2_times(dev, variant, shape=None, pad_frac=0.008):
     if variant == "lm":
         times["dropped_rows"] = int(kc.dropped_rows(plan.cam).numel())
     return times
+
+
+# K3 and K4's checks and times by (shape, padding share): a later phase
+# that launched them at a case phase 1 checked reuses phase 1's
+_schur_checked = {}
+
+
+def schur_checks(dev, shape, pad_frac):
+    """K3's passes and K4 at ``shape`` with ``pad_frac`` padding:
+    ({dtype: kernel_checks.check_schur's errors}, schur_times), made once
+    for each case."""
+    import torch
+    from slslam_tpu_torch import kernel_checks as kc
+    key = (tuple(shape), pad_frac)
+    if key not in _schur_checked:
+        case, plan = kc.schur_case(torch.float32, dev, shape, pad_frac)
+        errs = {"float32": kc.check_schur_case(case, plan),
+                "float64": kc.check_schur(torch.float64, dev, shape,
+                                          pad_frac)}
+        _schur_checked[key] = (errs, schur_times(case, plan))
+    return _schur_checked[key]
+
+
+def schur_times(case, plan):
+    """K3's passes and K4 on a float32 kernel_checks.schur_case and its
+    plan: {kernel: eager and graph-replayed ms, the twin's (the JAX
+    package's einsums with ``index_add_`` camera sums), the bound}; the
+    camera pass as the matvec.  No PyTorch call computes S x or the
+    blocks (``library_ms`` None)."""
+    from slslam_tpu_torch import kernel_checks as kc
+    from slslam_tpu_torch.ops import kernels
+    a = case
+    calls = {
+        "schur_matvec/line": (
+            lambda: kernels.schur_matvec_line(a["Wb"], a["obs_cam"], a["x"],
+                                              a["cam_free_f"], a["Binv"],
+                                              plan.line),
+            lambda: kernels.schur_matvec_line_twin(
+                a["Wb"], a["obs_cam"], a["x"], a["cam_free_f"], a["Binv"])),
+        "schur_matvec/cam": (
+            lambda: kernels.schur_matvec_cam(a["Wb"], a["w"], a["cam_free_f"],
+                                             plan.cam, Hcc_d=a["Hcc_d"],
+                                             x=a["x"]),
+            lambda: kernels.schur_matvec_cam_twin(
+                a["Wb"], a["w"], a["cam_free_f"], plan.cam.key,
+                Hcc_d=a["Hcc_d"], x=a["x"])),
+        "schur_jacobi": (
+            lambda: kernels.schur_jacobi(a["Wb"], a["Binv"], a["Hcc_d"],
+                                         a["cam_free_f"], plan.cam),
+            lambda: kernels.schur_jacobi_twin(a["Wb"], a["Binv"], a["Hcc_d"],
+                                              a["cam_free_f"], plan.cam.key))}
+    out = {}
+    for name, (kernel, twin) in calls.items():
+        out[name] = dict(ms=cuda_ms(kernel), device_ms=graph_ms(kernel),
+                         plain_ms=cuda_ms(twin, reps=20), library_ms=None)
+        out[name].update(zip(("bound_ms", "bound_by"), kc.bound(
+            *kc.schur_case_work(name, case, plan))))
+    return out
 
 
 def sort_plan(key, P):
@@ -636,6 +738,7 @@ def phase3(dev):
     kernels.reset_launch_counts()
     ref_gpu, t_gpu = refine(dev)
     n_lm = kernels.launch_counts["fused_eval/lm"]
+    n_schur = {k: kernels.launch_counts[k] for k in kernels.SCHUR_KERNELS}
     ref_cpu, t_cpu = refine("cpu")
     dref = max(float(np.linalg.norm(x.t - y.t))
                for x, y in zip(ref_gpu.trajectory, ref_cpu.trajectory))
@@ -643,7 +746,8 @@ def phase3(dev):
          "max_traj_diff_m": dref,
          "lm_iterations_cuda": ref_gpu.iterations,
          "lm_iterations_cpu": ref_cpu.iterations,
-         "lm_launches": n_lm, "wall_cuda_s": t_gpu, "wall_cpu_s": t_cpu})
+         "lm_launches": n_lm, "schur_launches": n_schur,
+         "wall_cuda_s": t_gpu, "wall_cpu_s": t_cpu})
     if not dref <= 1e-6:
         raise AssertionError(f"phase 3: refined trajectories differ by "
                              f"{dref} m")
@@ -651,6 +755,9 @@ def phase3(dev):
         raise AssertionError("phase 3: refine LM iterations differ")
     if n_lm == 0:
         raise AssertionError("phase 3: the refine never launched K2 lm")
+    if min(n_schur.values()) == 0:
+        raise AssertionError(f"phase 3: the refine's PCG never launched K3 "
+                             f"or K4: {n_schur}")
 
 
 @contextlib.contextmanager
@@ -809,8 +916,11 @@ def phase5(dev, rec, replay):
         "refined ATE <= 0.01 m": ate_ref <= 0.01,
         "lm launches == LM iterations":
             launches["fused_eval/lm"] == n_lm > 0,
-        "K1 launches == 2 LM + PCG iterations":
-            launches["segment_sum"] == 2 * n_lm + n_cg > 0,
+        "K3 line and camera passes == LM + PCG iterations":
+            launches["schur_matvec/line"] == launches["schur_matvec/cam"]
+            == n_lm + n_cg > 0,
+        "K4 launches == LM iterations": launches["schur_jacobi"] == n_lm,
+        "no K1 in the refine (no priors)": launches["segment_sum"] == 0,
         "two plans per solve": launches["segment_plan"] == 2 * len(solves),
         "no torch.func Jacobians on CUDA": jac_cuda == 0,
     }
@@ -928,6 +1038,8 @@ def phase6(dev):
         "post-pass launched cams, full, lm": min(
             by_variant[v] for v in ("cams", "full", "lm")) > 0,
         "post-pass launched K1": post_launches["segment_sum"] > 0,
+        "post-pass launched K3 and K4": min(
+            post_launches[k] for k in kernels.SCHUR_KERNELS) > 0,
         "post-pass repeats bit for bit": repeat,
     }
     failed = [k for k, v in checks.items() if not v]
@@ -968,18 +1080,34 @@ def shape_kernels(dev, rec, launches, launch_shapes, role, phase,
     """Every kernel at every shape a path launched it at (its
     ``kernels.launch_shapes``): against its twin in float32 and float64 at
     K1_TOL / K2_TOL (the plan: identical), then timed in float32 as phases
-    1 and 2 time the house shapes.  ``lm``'s case pads the share of rows
-    that the merged refine's packing pads (its (C, L, valid rows) is
-    ``refine_cl_o``).  Each shape goes to its kernel's ``shapes`` with
+    1 and 2 time the house shapes.  ``lm``'s, K3's and K4's cases pad the
+    share of rows that the merged refine's packing pads (its (C, L, valid
+    rows) is ``refine_cl_o``); K3's passes and K4 share one check and
+    timing a case (``schur_checks``).  Each shape goes to its kernel's ``shapes`` with
     ``role`` and its launches in that path."""
     import torch
     from slslam_tpu_torch import kernel_checks as kc
+    from slslam_tpu_torch.ops import kernels
     covered = dict.fromkeys(launches, 0)
     worst = {}
     t0 = time.perf_counter()
     for (name, shape), n in sorted(launch_shapes.items()):
         covered[name] += n
-        if name == "segment_plan":
+        C, L, O = shape if len(shape) == 3 else (0, 0, 0)
+        pad = 0.008
+        if (refine_cl_o is not None and (C, L) == refine_cl_o[:2]
+                and name not in ("segment_plan", "segment_sum")):
+            pad = 1.0 - refine_cl_o[2] / O
+        if name in kernels.SCHUR_KERNELS:
+            by_dtype, by_name = schur_checks(dev, shape, pad)
+            errs = {}
+            for key, e in by_dtype.items():
+                mine = [v for k, v in e.items() if k.startswith(name + " ")]
+                errs[key] = max(m for _, m in mine)
+                worst[name, key] = max(worst.get((name, key), 0.0),
+                                       *(err for err, _ in mine))
+            times = by_name[name]
+        elif name == "segment_plan":
             (_, diff), = kc.check_plans(dev, [shape])
             errs = {"plan": float(diff)}
             times = plan_times(dev, *shape)
@@ -994,11 +1122,6 @@ def shape_kernels(dev, rec, launches, launch_shapes, role, phase,
             times = k1_times(dev, *shape)
         else:
             variant = name.split("/")[1]
-            C, L, O = shape
-            pad = 0.008
-            if (variant == "lm" and refine_cl_o is not None
-                    and (C, L) == refine_cl_o[:2]):
-                pad = 1.0 - refine_cl_o[2] / O
             errs = {}
             for dtype in (torch.float32, torch.float64):
                 key = str(dtype)[6:]
@@ -1594,9 +1717,9 @@ def phase9a(dev, rec, lmb):
         <= LM_RPE_RTOL,
         "rpe_final_m < rpe_init_m": out32["rpe_final_m"] < out32["rpe_init_m"],
         "finite values": not finite and bool(np.all(np.isfinite(cam32))),
-        "the plan, K1 and K2 lm launched": all(
-            launches[k] > 0 for k in ("segment_plan", "segment_sum",
-                                      "fused_eval/lm")),
+        "the plan, K2 lm, K3 and K4 launched": all(
+            launches[k] > 0 for k in ("segment_plan", "fused_eval/lm",
+                                      *kernels.SCHUR_KERNELS)),
         "two plans a solve": launches["segment_plan"] == 4,
     }
     failed = [k for k, v in checks.items() if not v]
@@ -1613,12 +1736,15 @@ def phase9b(dev, lmb):
     LM and PCG iterations, cameras within 1e-6, final cost within 1e-9
     relative; at the tool's iterations the gaps logged."""
     import numpy as np
+    from slslam_tpu_torch.ops import kernels
     out = {}
     for name, iters in (("gated", list(LM_PARITY_ITERS)), ("tool", [])):
         argv = [*LM_PARITY, *iters, "--dtype", "float64", "--warm-runs", "0"]
         host = lmb.build(lmb.parser().parse_args(argv))
+        kernels.reset_launch_counts()
         outg, camg = lmb.run(lmb.parser().parse_args(
             argv + ["--device", str(dev)]), host)
+        schur = {k: kernels.launch_counts[k] for k in kernels.SCHUR_KERNELS}
         outc, camc = lmb.run(lmb.parser().parse_args(
             argv + ["--device", "cpu"]), host)
         out[name] = {
@@ -1629,7 +1755,7 @@ def phase9b(dev, lmb):
             "final_cost_rel_gap": abs(outg["final_cost"] - outc["final_cost"])
             / abs(outc["final_cost"]),
             "final_cost": outg["final_cost"],
-            "rpe_final_m": outg["rpe_final_m"],
+            "rpe_final_m": outg["rpe_final_m"], "schur_launches_card": schur,
             "solve_s_card": outg["cold_s"], "solve_s_cpu": outc["cold_s"]}
     log({"phase": 9, "run": f"(b) large map {' '.join(LM_PARITY)}, float64, "
          "card vs CPU", **out})
@@ -1640,7 +1766,10 @@ def phase9b(dev, lmb):
                   g["cg_iterations"][0] == g["cg_iterations"][1],
               "cameras within 1e-6": g["max_cam_gap"] <= 1e-6,
               "final cost within 1e-9 relative":
-                  g["final_cost_rel_gap"] <= 1e-9}
+                  g["final_cost_rel_gap"] <= 1e-9,
+              "the card's PCG launched K3 and K4": all(
+                  min(o["schur_launches_card"].values()) > 0
+                  for o in out.values())}
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"phase 9 (b) failed: {failed}")
@@ -2186,7 +2315,9 @@ def main():
                ("segment_sum", K1_SOURCE,
                 "slslam_tpu/ops/pallas_kernels.py:64"),
                *((f"fused_eval/{v}", K2_SOURCE, k2_line)
-                 for v in kernels.VARIANTS))}
+                 for v in kernels.VARIANTS),
+               *((name, K34_SOURCE, K34_REPLACES[name])
+                 for name in kernels.SCHUR_KERNELS))}
     smi = phase0(dev)
     phase1(dev, rec)
     phase2(dev, rec)
@@ -2216,6 +2347,8 @@ def main():
     checked = ({("segment_plan", s) for s in kc.PLAN_SHAPES}
                | {("segment_sum", s) for s in kc.K1_SHAPES}
                | {(f"fused_eval/{v}", s) for v, s in kc.K2_SHAPES.items()}
+               | {(name, s) for name in kernels.SCHUR_KERNELS
+                  for s in kc.SCHUR_SHAPES.values()}
                | set(shapes6) | set(shapes7) | set(shapes8))
     paths9, shapes9 = phase9(dev, rec, checked)
     for path, launches9 in paths9.items():

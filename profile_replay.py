@@ -45,7 +45,13 @@ where one launch is long (chip_smoke._reps).  It calls only what every
 version of the port has, so two commits compare in one call: unpack the
 other into a git-ignored directory and run parent, change, change,
 parent.  Where the checkout's plan has several paths, the plan is also
-timed on each path that can take the shape.
+timed on each path that can take the shape.  Last, one PCG step of the
+checkout's ``schur_cg._solve_step_cg`` at the refine's, the loop-closure
+refine's and the large map's shapes (``kernel_checks.SCHUR_SHAPES``, on
+K2 ``lm``'s blocks of ``k2_lm_case`` problems, float32): its host wall,
+synchronized, at 0 and 20 PCG iterations and the difference per
+iteration -- the K3 / K4 path against the parent's einsum chain over
+K1.
 
     python3 profile_replay.py --refine ROOT [--seed N]
 
@@ -227,6 +233,8 @@ def kernel_times(root):
             ("lm", (kc.MAP_C, kc.MAP_L, kc.MAP_O), kc.MAP_PAD))}
     plan_keys = {(O, P): kc.plan_case(O, P, dev)
                  for O, P in kc.PLAN_SHAPES + kc.PLAN_LARGE_SHAPES}
+    steps = {where: pcg_step_inputs(kc, dev, where)
+             for where in kc.SCHUR_SHAPES}
     # now import the port of the checkout at root
     for name in [m for m in sys.modules
                  if m.split(".")[0] == "slslam_tpu_torch"]:
@@ -277,7 +285,66 @@ def kernel_times(root):
                 return kernels.segment_plan(key, P, path=path)
             out[f"segment_plan_{O}_{P}"][path] = {
                 "ms": cuda_ms(plan), "device_ms": graph_ms(plan)}
+    for where, blocks in steps.items():
+        out[f"pcg_step_{where}"] = pcg_step_times(blocks)
     log(out)
+
+
+def pcg_step_inputs(kc, dev, where, lam=1e-3):
+    """The refine PCG step's inputs at kernel_checks.SCHUR_SHAPES[where]
+    in float32: K2 ``lm``'s blocks (this checkout's) on k2_lm_case's
+    problem with the shape's padding share, laid out as ``global_ba_cg``
+    hands them to ``_solve_step_cg``."""
+    import torch
+    from slslam_tpu_torch.ops import kernels
+    C, L, O = kc.SCHUR_SHAPES[where]
+    kL = O // L
+    a = kc.k2_lm_case(torch.float32, dev, C=C, L=L, kL=kL,
+                      pad_frac=kc.SCHUR_PADS[where])
+    plan = kernels.ba_plan(a["obs_cam"], a["obs_line"], a["w_valid"], C, L,
+                           "lm")
+    _, Hcc, Hll, gc, gl, Wb = kernels.fused_eval(**a, variant="lm",
+                                                 plan=plan)
+    return dict(Hcc=Hcc.clone(), Hll=Hll.clone(), gc=gc.clone(),
+                gl=gl.clone(), Wb=Wb.reshape(L, kL, 6, 4).clone(),
+                obs_cam=a["obs_cam"].reshape(L, kL),
+                w_valid=a["w_valid"].reshape(L, kL),
+                cam_free_f=a["cam_free_f"], line_free_f=a["line_free_f"],
+                lam=lam, shape=[C, L, O])
+
+
+def pcg_step_times(b, iters=20, reps=3):
+    """One PCG step of the imported port's ``schur_cg._solve_step_cg`` on
+    ``b`` (pcg_step_inputs), stopped after 0 and after ``iters`` PCG
+    iterations (eta 0: no early stop): the least host wall of ``reps``
+    runs each, synchronized (the loop reads its condition from the device
+    each iteration), and the difference per PCG iteration."""
+    import inspect
+    import torch
+    from slslam_tpu_torch.ops import schur_cg
+    plan = schur_cg.lm_plan(b["obs_cam"], b["w_valid"], b["Hcc"].shape[0])
+    kw = ({"line_plan": plan.line} if "line_plan" in inspect.signature(
+        schur_cg._solve_step_cg).parameters else {})
+
+    def wall(n):
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = schur_cg._solve_step_cg(
+                b["Hcc"], b["Hll"], b["gc"], b["gl"], b["Wb"], b["obs_cam"],
+                plan.cam, b["lam"], b["cam_free_f"], b["line_free_f"], n, 0.0,
+                **kw)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        assert out[4] == n
+        return best * 1e3
+
+    wall(iters)                       # warm-up
+    w0, wn = wall(0), wall(iters)
+    return {"shape": b["shape"], "step_0_pcg_ms": w0,
+            f"step_{iters}_pcg_ms": wn,
+            "pcg_iteration_ms": (wn - w0) / iters}
 
 
 def refine_times(root, seed=4, reps=3):

@@ -3,6 +3,7 @@ at any shape a path launched a kernel at), and the least time the card
 could take for each kernel's work.
 
 Shared by ``chip_smoke.py`` (phases 1 and 2 at the house shapes below,
+K3 and K4 at the refine's, the loop-closure refine's and the map's,
 phases 6 and 7 at every shape ``kernels.launch_shapes`` recorded in the
 loop-closure and interactive runs) and the tests (``tests/test_torch_gpu.py``,
 ``SLSLAM_GPU_TESTS=1``; the rounding witnesses on the CPU).  Inputs are
@@ -15,7 +16,11 @@ max|twin|), per output:
 * K1 (deterministic, fixed-order sums): 1e-12 in float64, 1e-5 in float32;
 * K2, every variant (deterministic, fixed-order sums; dual-number vs
   torch.func derivatives): 1e-10 in float64, 1e-5 in float32; ``lm``'s
-  Wb rows that its plan drops must be exactly zero.
+  Wb rows that its plan drops must be exactly zero;
+* K3 and K4 (deterministic, fixed-order sums of the same products): 1e-12
+  in float64, of the largest sum of absolute terms an output adds; in
+  float32 held to the float64 twin, at most twice as far as the float32
+  twin plus 1e-6 (a rounding witness).
 
 Bounds (``bound``) follow the H100 SXM data sheet: 3.35 TB/s of HBM3 and
 67 TFLOP/s of float32 outside the tensor cores, each input read once and
@@ -36,11 +41,17 @@ from .ops import kernels
 # so L kL flat rows of which 0.8 % are padding
 REFINE_C, REFINE_L, REFINE_KL = 400, 74, 400
 REFINE_O = REFINE_L * REFINE_KL
+# The loop-closure workload's merged refine on the card (bench.lc_workload,
+# 170 village frames: 170 cameras, 453 lines of kL = 56 rows), and its
+# share of padding rows (the same workload on the CPU packs 10,409 valid
+# rows into 454 x 56)
+LC_REFINE_C, LC_REFINE_L, LC_REFINE_O = 170, 453, 25_368
+LC_REFINE_PAD = 0.59
 # (O, D, P) of K1's calls: first the main path's, lines-GN's trial cost
 # (2W x Om rows, 1 lane, Lp lines) with its line plan; then the assembly's
 # widths (lines Hll|gl|cost and the 4-camera Hcc|gc of the VO window); then
-# the refine PCG's camera sums, the matvec's (6 lanes) and the
-# preconditioner's (36)
+# the refine's rows summed by camera at 6 and 36 lanes, K1's widest
+# checks (on no path: the refine PCG's camera sums are K3's and K4's)
 K1_SHAPES = ((1600, 1, 81), (1600, 21, 81), (162, 42, 4),
              (REFINE_O, 6, REFINE_C), (REFINE_O, 36, REFINE_C))
 # (O, P) of the plans the main path builds: a frame's window lines and
@@ -165,17 +176,7 @@ def k2_lm_case(dtype, device, C=REFINE_C, L=REFINE_L, kL=REFINE_KL,
     cam[1 % C, :3] = 0.0
     line = rng.standard_normal((L, 4)) * 0.2
     line[:, 3] = 0.3 + 0.5 * rng.random(L)
-    if kL > C or L * C <= LM_CASE_PERMUTED:
-        oc = np.stack([rng.permutation(C)[:kL] if kL <= C
-                       else rng.integers(0, C, kL) for _ in range(L)])
-    else:
-        band = (rng.integers(0, C, L)[:, None] + np.arange(kL)) % C
-        oc = np.take_along_axis(band, np.argsort(rng.random((L, kL)),
-                                                 axis=1), axis=1)
-    n_pad = rng.multinomial(max(1, int(round(pad_frac * L * kL))),
-                            np.ones(L) / L)
-    valid = np.arange(kL)[None, :] < (kL - n_pad)[:, None]
-    oc[~valid] = 0
+    oc, valid = _line_major_rows(rng, C, L, kL, pad_frac)
     obs = rng.standard_normal((L, kL, 8)) * 0.2
     obs[~valid] = 0.0
     cfree = np.ones(C)
@@ -195,6 +196,26 @@ def k2_lm_case(dtype, device, C=REFINE_C, L=REFINE_L, kL=REFINE_KL,
                 w_valid=f(valid.reshape(-1).astype(np.float64)),
                 cam_free_f=f(cfree), line_free_f=f(lfree), baseline=0.12,
                 huber_delta=1.0 / 406.05)
+
+
+def _line_major_rows(rng, C, L, kL, pad_frac):
+    """k2_lm_case's rows: (L, kL) cameras, each line's distinct and in
+    random order (random where kL > C; kL consecutive from a random start
+    past LM_CASE_PERMUTED L C), and the (L, kL) validity, ``pad_frac`` of
+    the rows (one at least) padding at the end of their buckets, camera 0
+    there."""
+    if kL > C or L * C <= LM_CASE_PERMUTED:
+        oc = np.stack([rng.permutation(C)[:kL] if kL <= C
+                       else rng.integers(0, C, kL) for _ in range(L)])
+    else:
+        band = (rng.integers(0, C, L)[:, None] + np.arange(kL)) % C
+        oc = np.take_along_axis(band, np.argsort(rng.random((L, kL)),
+                                                 axis=1), axis=1)
+    n_pad = rng.multinomial(max(1, int(round(pad_frac * L * kL))),
+                            np.ones(L) / L)
+    valid = np.arange(kL)[None, :] < (kL - n_pad)[:, None]
+    oc[~valid] = 0
+    return oc, valid
 
 
 def k2_variant_case(variant, dtype, device, shape=None, pad_frac=0.008):
@@ -388,6 +409,253 @@ def check_k2(dtype, device, variant="full", shape=None, pad_frac=0.008):
             raise AssertionError(f"fused_eval/lm {dtype}: a dropped row of "
                                  "Wb is not exactly zero")
     return errs
+
+
+# ---------------------------------------------------------------------------
+# K3 schur_matvec and K4 schur_jacobi
+# ---------------------------------------------------------------------------
+
+# (C, L, O) of the refine PCG's kernels on the paths (the bench's refine,
+# the loop-closure workload's merged refine, the large map) and the share
+# of padding rows at each
+SCHUR_SHAPES = {"refine": (REFINE_C, REFINE_L, REFINE_O),
+                "lc": (LC_REFINE_C, LC_REFINE_L, LC_REFINE_O),
+                "map": (MAP_C, MAP_L, MAP_O)}
+SCHUR_PADS = {"refine": 0.008, "lc": LC_REFINE_PAD, "map": MAP_PAD}
+# f64: max abs error against the twin over the largest sum of the
+# absolute terms an output adds (schur_term_scales: a sum's rounding
+# scales with its terms, and K4's Hcc_d - sum T or the matvec's Hcc_d x -
+# v cancel to far less than their terms on a real solve's blocks); f32:
+# against the float64 twin on the same (upcast) inputs, at most
+# SCHUR_F32_WITNESS x the float32 twin's own error there plus
+# SCHUR_F32_FLOOR (rounding alone: each sums in its own order)
+SCHUR_TOL = {torch.float64: 1e-12}
+SCHUR_F32_WITNESS = 2.0
+SCHUR_F32_FLOOR = 1e-6
+SCHUR_OUTPUTS = {"schur_matvec/line": ("w", "z"),
+                 "schur_matvec/cam": ("Sx", "rhs"),
+                 "schur_jacobi": ("P",)}
+
+
+def schur_case(dtype, device, shape=SCHUR_SHAPES["refine"], pad_frac=0.008,
+               seed=0):
+    """Inputs of K3 and K4 on a line-major problem of ``shape`` (C, L, O =
+    L kL): k2_lm_case's rows (``pad_frac`` padding at the ends of the
+    buckets), then camera C - 1 without a valid row and line L - 1 without
+    one (C, L > 2), camera 0 fixed; random Wb (L, kL, 6, 4), zero on every
+    invalid row (as K2 ``lm`` writes it), x, gc (C, 6), Hcc_d (C, 6, 6),
+    Binv (L, 4, 4) symmetric positive definite, w (L, 4); and the plans
+    (``ba_plan(..., "lm")``).  Made in float64 with numpy, then cast."""
+    C, L, O = shape
+    if O % L:
+        raise ValueError(f"schur_case: O = {O} is not L = {L} buckets")
+    kL = O // L
+    rng = np.random.default_rng(seed)
+    oc, valid = _line_major_rows(rng, C, L, kL, pad_frac)
+    if C > 2 and L > 2:
+        valid &= oc != C - 1
+        valid[L - 1] = False
+    Wb = np.zeros((L, kL, 6, 4))
+    Wb[valid] = rng.standard_normal((int(valid.sum()), 6, 4)) * 0.5
+    A = rng.standard_normal((L, 4, 4))
+    Binv = A @ A.transpose(0, 2, 1) / 4 + 0.2 * np.eye(4)
+    H = rng.standard_normal((C, 6, 6))
+    Hcc_d = H @ H.transpose(0, 2, 1) + 6 * np.eye(6)
+    cfree = np.ones(C)
+    cfree[0] = 0.0
+
+    def f(a):
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+    obs_cam = torch.as_tensor(oc.astype(np.int32), device=device)
+    w_valid = f(valid.astype(np.float64))
+    plan = kernels.ba_plan(obs_cam.reshape(-1), torch.arange(
+        L, dtype=torch.int32, device=device).repeat_interleave(kL),
+        w_valid.reshape(-1), C, L, "lm")
+    return dict(Wb=f(Wb), obs_cam=obs_cam, w_valid=w_valid,
+                cam_free_f=f(cfree), x=f(rng.standard_normal((C, 6))),
+                gc=f(rng.standard_normal((C, 6))), Hcc_d=f(Hcc_d),
+                Binv=f(Binv), w=f(rng.standard_normal((L, 4)))), plan
+
+
+def schur_calls(case, plan, twin=False):
+    """{kernel: a function of no arguments returning its outputs
+    (SCHUR_OUTPUTS)} on ``case``: the wrappers, or with ``twin`` the plain
+    twins on the case's device."""
+    a = case
+    if twin:
+        key = plan.cam.key
+        return {
+            "schur_matvec/line": lambda: kernels.schur_matvec_line_twin(
+                a["Wb"], a["obs_cam"], a["x"], a["cam_free_f"], a["Binv"]),
+            "schur_matvec/cam": lambda: (
+                kernels.schur_matvec_cam_twin(
+                    a["Wb"], a["w"], a["cam_free_f"], key, Hcc_d=a["Hcc_d"],
+                    x=a["x"]),
+                kernels.schur_matvec_cam_twin(a["Wb"], a["w"],
+                                              a["cam_free_f"], key,
+                                              gc=a["gc"])),
+            "schur_jacobi": lambda: (kernels.schur_jacobi_twin(
+                a["Wb"], a["Binv"], a["Hcc_d"], a["cam_free_f"], key),)}
+    return {
+        "schur_matvec/line": lambda: kernels.schur_matvec_line(
+            a["Wb"], a["obs_cam"], a["x"], a["cam_free_f"], a["Binv"],
+            plan.line),
+        "schur_matvec/cam": lambda: (
+            kernels.schur_matvec_cam(a["Wb"], a["w"], a["cam_free_f"],
+                                     plan.cam, Hcc_d=a["Hcc_d"], x=a["x"]),
+            kernels.schur_matvec_cam(a["Wb"], a["w"], a["cam_free_f"],
+                                     plan.cam, gc=a["gc"])),
+        "schur_jacobi": lambda: (kernels.schur_jacobi(
+            a["Wb"], a["Binv"], a["Hcc_d"], a["cam_free_f"], plan.cam),)}
+
+
+def check_schur(dtype, device, shape=SCHUR_SHAPES["refine"], pad_frac=0.008,
+                concurrency=False):
+    """K3's two passes (the camera pass as the matvec and as the
+    right-hand side) and K4 on ``device`` at ``shape`` against their twins
+    on the same device, each launched twice (the launches must agree bit
+    for bit).  float64: error <= SCHUR_TOL of the terms' scale
+    (schur_term_scales); float32: against
+    the float64 twin on the same inputs, within SCHUR_F32_WITNESS x the
+    float32 twin's error plus SCHUR_F32_FLOOR.  With ``concurrency`` (on
+    the card): launches on two streams at once and replayed from a CUDA
+    graph equal an eager launch bit for bit, and a plan of the wrong
+    segments (the line plan for the camera plan and back) is refused
+    before any launch.  Returns {kernel output: (error against the
+    same-dtype twin, max abs error)}, the error normalized by the terms'
+    scale in float64 and by the output's (``errors``) in float32; raises
+    on any failure."""
+    case, plan = schur_case(dtype, device, shape, pad_frac)
+    return check_schur_case(case, plan, concurrency)
+
+
+def schur_step_case(Hcc, Hll, gc, gl, Wb, obs_cam, w_valid, cam_free_f,
+                    lam=1e-3, seed=0):
+    """K3 and K4's inputs from a solve's blocks (K2 ``lm``'s, say) as
+    ``_solve_step_cg`` forms them at damping ``lam`` (Binv and Hcc_d by
+    ``schur_cg.damped_blocks``, w = Binv gl), with a random x: (case,
+    plan) for check_schur_case."""
+    from .ops.schur_cg import damped_blocks, lm_plan
+    _, _, Binv, Hcc_d = damped_blocks(Hcc, Hll, lam)
+    C = Hcc.shape[0]
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((C, 6)), dtype=Hcc.dtype,
+                        device=Hcc.device)
+    case = dict(Wb=Wb.contiguous(), obs_cam=obs_cam.to(torch.int32)
+                .contiguous(), w_valid=w_valid, cam_free_f=cam_free_f
+                .contiguous(), x=x, gc=gc.contiguous(), Hcc_d=Hcc_d,
+                Binv=Binv, w=torch.einsum("lab,lb->la", Binv, gl)
+                .contiguous())
+    return case, lm_plan(case["obs_cam"], w_valid, C)
+
+
+def schur_term_scales(case, plan):
+    """{kernel output: the largest over its entries of the sum of the
+    absolute values of the terms the entry adds} on ``case``: |Wb|^T |x_m|
+    summed over a line's rows (z), |Binv| times that (w), |Hcc_d| |x_m|
+    plus the camera's sum of |Wb| |w| (the matvec; |x| for a fixed
+    camera), |gc| plus that sum (the right-hand side), |Hcc_d| plus the
+    camera's sum of |Wb| |Binv| |Wb|^T (K4)."""
+    a = {k: (v.abs() if v.is_floating_point() else v) for k, v in
+         case.items()}
+    L, kL = a["Wb"].shape[:2]
+    C = a["cam_free_f"].shape[0]
+    key = plan.cam.key
+    w_abs, z_abs = kernels.schur_matvec_line_twin(
+        a["Wb"], a["obs_cam"], a["x"], a["cam_free_f"], a["Binv"])
+    v_abs = kernels.segment_sum_twin(torch.einsum(
+        "lkab,lb->lka", a["Wb"], a["w"]).reshape(L * kL, 6), key, C)
+    xm = a["x"] * a["cam_free_f"][:, None]
+    Sx = torch.where(a["cam_free_f"][:, None] > 0, torch.einsum(
+        "cab,cb->ca", a["Hcc_d"], xm) + v_abs, a["x"])
+    T = torch.einsum("lkab,lbc,lkdc->lkad", a["Wb"], a["Binv"], a["Wb"])
+    P = a["Hcc_d"] + kernels.segment_sum_twin(
+        T.reshape(L * kL, 36), key, C).reshape(C, 6, 6)
+    return {k: float(v.max()) if v.numel() else 0.0 for k, v in {
+        "schur_matvec/line w": w_abs, "schur_matvec/line z": z_abs,
+        "schur_matvec/cam Sx": Sx, "schur_matvec/cam rhs": a["gc"] + v_abs,
+        "schur_jacobi P": P}.items()}
+
+
+def check_schur_case(case, plan, concurrency=False):
+    """check_schur's checks on a schur_case-like ``case`` and its plan."""
+    dtype = case["Wb"].dtype
+    calls = schur_calls(case, plan)
+    ref = {k: f() for k, f in schur_calls(case, plan, twin=True).items()}
+    if dtype == torch.float64:
+        scales = schur_term_scales(case, plan)
+    if dtype == torch.float32:
+        case64 = {k: (v.double() if v.is_floating_point() else v)
+                  for k, v in case.items()}
+        ref64 = {k: f() for k, f in schur_calls(case64, plan,
+                                                 twin=True).items()}
+    errs = {}
+    for name, call in calls.items():
+        got, again = call(), call()
+        for out, a, a2, b in zip(SCHUR_OUTPUTS[name], got, again, ref[name]):
+            if not torch.equal(a, a2):
+                raise AssertionError(f"{name} {dtype} {out}: two launches "
+                                     "on the same input differ")
+            key = f"{name} {out}"
+            errs[key] = errors(a, b)
+            if dtype == torch.float64:
+                err = errs[key][1] / max(1.0, scales[key])
+                errs[key] = (err, errs[key][1])
+                if not err <= SCHUR_TOL[dtype]:
+                    raise AssertionError(
+                        f"{name} {dtype} {out}: error {err} (of the terms' "
+                        f"scale {scales[key]}) > {SCHUR_TOL[dtype]}")
+        if dtype == torch.float32:
+            for out, a, b, c in zip(SCHUR_OUTPUTS[name], got, ref[name],
+                                    ref64[name]):
+                err, twin_err = errors(a, c)[0], errors(b, c)[0]
+                lim = SCHUR_F32_WITNESS * twin_err + SCHUR_F32_FLOOR
+                if not err <= lim:
+                    raise AssertionError(
+                        f"{name} float32 {out}: error {err} against the "
+                        f"float64 twin > {lim} (the float32 twin's "
+                        f"{twin_err})")
+        if concurrency:
+            _schur_concurrency(name, call, got, case, plan)
+    return errs
+
+
+def _schur_concurrency(name, call, ref, case, plan):
+    """check_schur's launches on two streams, from a CUDA graph, and with
+    a wrong plan (the caller's case at a shape where C != L)."""
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    outs = []
+    for _ in range(10):
+        outs.append(call())
+        with torch.cuda.stream(side):
+            outs.append(call())
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(3):
+        graph.replay()
+        outs.append(call())
+    torch.cuda.synchronize()
+    for out in outs + [captured]:
+        for a, b in zip(out, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: a launch on a second stream "
+                                     "or from a CUDA graph differs")
+    before = kernels.launch_counts[name]
+    swapped = plan._replace(cam=plan.line, line=plan.cam)
+    try:
+        schur_calls(case, swapped)[name]()
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"{name}: a plan of the wrong segments was "
+                             "taken")
+    if kernels.launch_counts[name] != before:
+        raise AssertionError(f"{name}: launched with a wrong plan")
 
 
 # (C, L, O) of the interactive engine's window at the bench's buckets
@@ -584,6 +852,40 @@ _K2_PARTS = {
     "lm": ("residual", "dr_dq", "cam_cols", "line_cols", "huber", "weigh_r",
            "weigh_cam", "weigh_line", "cam_out", "line_out", "row_out"),
 }
+
+
+def schur_work(name, C, L, kept, e, rhs=False):
+    """(bytes, operations) of one K3 pass or K4 launch (``name`` as in
+    SCHUR_OUTPUTS; ``rhs``: the camera pass as the right-hand side) over
+    ``kept`` valid rows with e-byte floats: each valid row's Wb and plan
+    entry (the line pass also its camera index), the per-camera and
+    per-line blocks and the plan's offsets read once, the outputs written
+    once.  Padding rows count nothing: the function does not need them."""
+    row = kept * (24 * e + 4)
+    if name == "schur_matvec/line":
+        # z = sum of Wb^T x_m (48 + 4 a row), w = Binv z (32 a line)
+        return (row + 4 * kept + C * 7 * e + L * 16 * e + 4 * (L + 1)
+                + 2 * L * 4 * e, kept * 52 + L * 32 + 6 * C)
+    if name == "schur_matvec/cam":
+        # v = sum of Wb w (48 + 6 a row); a camera's Hcc_d x_m (72) and
+        # masks (36) in the matvec, (-gc + v) m (12) in the right-hand side
+        blocks = C * (6 + 1) * e if rhs else C * (36 + 6 + 1) * e
+        return (row + L * 4 * e + 4 * (C + 1) + blocks + C * 6 * e,
+                kept * 54 + C * (12 if rhs else 108))
+    if name == "schur_jacobi":
+        # Wb Binv (192 a row), times Wb^T (288), the sum (36)
+        return (row + L * 16 * e + 4 * (C + 1) + C * 37 * e + C * 36 * e,
+                kept * 516 + C * 36)
+    raise ValueError(f"unknown kernel {name!r}")
+
+
+def schur_case_work(name, case, plan, rhs=False):
+    """schur_work on a schur_case (or a solve's tensors: Wb, cam_free_f)
+    and its plan: its kept rows are the plan's."""
+    L = case["Wb"].shape[0]
+    return schur_work(name, case["cam_free_f"].shape[0], L,
+                      int(plan.cam.offsets[-1]), case["Wb"].element_size(),
+                      rhs)
 
 
 def k2_row_ops(variant):

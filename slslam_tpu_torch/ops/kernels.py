@@ -1,4 +1,4 @@
-"""The port's two hand-written CUDA kernels, their wrappers and plain twins.
+"""The port's hand-written CUDA kernels, their wrappers and plain twins.
 
 K1 ``segment_sum`` — per-segment row sums (O, D) x idx (O,) -> (P, D),
 rows with idx outside [0, P) dropped.  Replaces ``segment_sum_pallas``
@@ -6,7 +6,8 @@ rows with idx outside [0, P) dropped.  Replaces ``segment_sum_pallas``
 segment plan, ``segment_plan``: the rows grouped stably by index (a
 permutation plus offsets), which a BA solve builds once and hands to K1 and
 K2 in every LM iteration.  On the main path K1 sums lines-GN's trial cost
-and the refine PCG's per-camera rows (``schur_cg._solve_step_cg``).
+and the pose priors' blocks (the refine PCG's per-camera rows are K3's and
+K4's).
 Source: ``csrc/segment_sum.cu``.
 
 K2 ``fused_eval`` — the BA evaluate in one launch (``lm``: two): gather,
@@ -29,6 +30,23 @@ Replaces ``fused_eval_pallas`` with its two kernels
 orth lines; the aid and asd parameterizations go through it by the chain
 rule (``fused_eval_chart``): each line is decoded to orth, K2 evaluates,
 and the line blocks are mapped by M = d orth / d p, one 4x4 per line.
+
+K3 ``schur_matvec`` and K4 ``schur_jacobi`` — the global refine's PCG on
+the reduced camera system S = Hcc_d - W Binv W^T over the line-major
+layout (``schur_cg._solve_step_cg``), which the JAX package left to XLA
+einsums (slslam_tpu/ops/schur_cg.py:173-279):
+
+* K3's line pass (``schur_matvec_line``): w = Binv z, z = sum over each
+  line's valid rows of Wb^T x_m[cam] (the matvec's first half, and the
+  back-substitution's coupling z);
+* K3's camera pass (``schur_matvec_cam``): the matvec's per-camera sums of
+  Wb w[line] and S x with fixed cameras as the identity, or the
+  right-hand side (-gc + W Binv gl) m;
+* K4 (``schur_jacobi``): the SCHUR_JACOBI blocks Hcc_d - sum of Wb Binv
+  Wb^T over each camera's rows, the identity for a fixed camera.
+
+Each reads only the valid rows, through the solve's line or camera plan,
+with no (rows, ...) intermediate in memory.  Source: ``csrc/schur_cg.cu``.
 
 Each wrapper takes its plain-PyTorch twin for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  The kernels are built with
@@ -59,17 +77,19 @@ from .residuals import (lba_residual_jac_batch, lba_residual_jac_cam_batch,
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("segment_sum.cu", "fused_eval.cu")
+SOURCES = ("segment_sum.cu", "fused_eval.cu", "schur_cg.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 VARIANTS = ("full", "cams", "lines", "lm")
 
 # launches of each kernel since the last reset_launch_counts(), and the
 # same launches by shape: (kernel, shape) -> launches, the shape (O, P) for
-# the plan, (O, D, P) for K1 and (C, L, O) for K2
+# the plan, (O, D, P) for K1 and (C, L, O) for K2, K3 and K4
+SCHUR_KERNELS = ("schur_matvec/line", "schur_matvec/cam", "schur_jacobi")
 launch_counts: Dict[str, int] = {
     "segment_plan": 0, "segment_sum": 0,
-    **{f"fused_eval/{v}": 0 for v in VARIANTS}}
+    **{f"fused_eval/{v}": 0 for v in VARIANTS},
+    **dict.fromkeys(SCHUR_KERNELS, 0)}
 launch_shapes: Dict[tuple, int] = {}
 # wall seconds of the nvcc builds in this process (None until built)
 build_seconds = None
@@ -124,6 +144,17 @@ def _bind(libs):
     k1.seg_plan_scratch.restype = ctypes.c_longlong
     k2.fused_eval_scratch.argtypes = [i, i, i, i]
     k2.fused_eval_scratch.restype = ctypes.c_longlong
+    k3 = libs["schur_cg"]
+    for suf in ("f32", "f64"):
+        fn = getattr(k3, f"schur_line_{suf}")
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p]
+        fn.restype = i
+        fn = getattr(k3, f"schur_cam_{suf}")
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, p, p]
+        fn.restype = i
+        fn = getattr(k3, f"schur_jacobi_{suf}")
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, p, p]
+        fn.restype = i
 
 
 def load_library():
@@ -649,3 +680,163 @@ def _fused_eval_orth(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     names = {"lines": ("Hll", "gl", "cost_l"), "cams": ("cost", "Hcc", "gc")
              }.get(variant, ("cost", "Hcc", "Hll", "gc", "gl", "W"))
     return tuple(parts[name] for name in names)
+
+
+# ---------------------------------------------------------------------------
+# K3: schur_matvec (line pass, camera pass) and K4: schur_jacobi
+# ---------------------------------------------------------------------------
+
+def schur_matvec_line_twin(Wb, obs_cam, x, cam_free_f, Binv):
+    """Plain version of K3's line pass (the einsums of slslam_tpu/ops/
+    schur_cg.py:202-205 and of the back-substitution, :270-271): Wb (L,kL,6,4), obs_cam (L,kL), x (C,6), cam_free_f
+    (C,), Binv (L,4,4) -> w = Binv z (L,4) and z (L,4), z_l the sum over
+    line l's rows of Wb^T (x m)[cam]."""
+    xm = x * cam_free_f[:, None]
+    y = torch.einsum("lkab,lka->lkb", Wb, xm[obs_cam.long()])  # (L,kL,4)
+    z = torch.sum(y, dim=1)                                     # (L,4)
+    w = torch.einsum("lab,lb->la", Binv, z)                     # (L,4)
+    return w, z
+
+
+def schur_matvec_cam_twin(Wb, w, cam_free_f, cam_key, Hcc_d=None, x=None,
+                          gc=None):
+    """Plain version of K3's camera pass (schur_cg.py:206-208 and 214
+    without the priors, and the right-hand side, :217-219):
+    v = the per-camera sums (``segment_sum_twin`` over ``cam_key``, the
+    camera plan's key) of Wb w[line] (L,kL,6); then (Hcc_d x_m - v) m +
+    x (1 - m), or with ``gc`` the right-hand side (-gc + v) m."""
+    L, kL = Wb.shape[:2]
+    C = cam_free_f.shape[0]
+    m = cam_free_f[:, None]
+    u = torch.einsum("lkab,lb->lka", Wb, w)                     # (L,kL,6)
+    v = segment_sum_twin(u.reshape(L * kL, 6).contiguous(), cam_key, C)
+    if gc is not None:
+        return (-gc + v) * m
+    Sx = torch.einsum("cab,cb->ca", Hcc_d, x * m) - v
+    return Sx * m + x * (1.0 - m)
+
+
+def schur_jacobi_twin(Wb, Binv, Hcc_d, cam_free_f, cam_key):
+    """Plain version of K4 (schur_cg.py:223-227): Hcc_d minus the
+    per-camera sums of Wb Binv Wb^T (the (L,kL,6,6) T), the identity for
+    a fixed camera."""
+    L, kL = Wb.shape[:2]
+    C = Hcc_d.shape[0]
+    T = torch.einsum("lkab,lbc,lkdc->lkad", Wb, Binv, Wb)      # (L,kL,6,6)
+    P = Hcc_d - segment_sum_twin(T.reshape(L * kL, 36).contiguous(),
+                                 cam_key, C).reshape(C, 6, 6)
+    eye6 = torch.eye(6, dtype=Hcc_d.dtype, device=Hcc_d.device)
+    return torch.where(cam_free_f[:, None, None] > 0, P, eye6)
+
+
+def _check_schur(name, Wb, plan, P, **blocks):
+    """Raises unless a K3 / K4 launch can take its arguments: Wb (L, kL,
+    6, 4) contiguous and 16-byte aligned (the kernels' vector loads), each
+    of ``blocks`` ({name: (tensor, shape)}) of its shape, of Wb's dtype
+    (int32 ``obs_cam``) and contiguous on Wb's device, and ``plan`` a plan
+    of the L kL rows into P segments."""
+    if Wb.dim() != 4 or tuple(Wb.shape[2:]) != (6, 4):
+        raise ValueError(f"{name}: Wb has shape {tuple(Wb.shape)}, "
+                         "expected (L, kL, 6, 4)")
+    _suffix(Wb.dtype)
+    dev = Wb.device
+    _check_cuda(name, dev, Wb=Wb, **{k: t for k, (t, _) in blocks.items()})
+    if Wb.data_ptr() % 16:
+        raise ValueError(f"{name}: Wb must be 16-byte aligned")
+    for k, (t, shape) in blocks.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {k} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        want = torch.int32 if k == "obs_cam" else Wb.dtype
+        if t.dtype != want:
+            raise TypeError(f"{name}: {k} is {t.dtype}, expected {want}")
+    if plan is None:
+        raise ValueError(f"{name}: needs the solve's segment plan")
+    L, kL = Wb.shape[:2]
+    _check_plan(name, plan, L * kL, P, dev)
+    if L < 1 or P < 1:
+        raise ValueError(f"{name}: needs at least one line and segment")
+
+
+def schur_matvec_line(Wb, obs_cam, x, cam_free_f, Binv, line_plan):
+    """K3's line pass: (w, z), each (L, 4): z_l = sum over line l's rows
+    of Wb^T (x m)[obs_cam], w_l = Binv_l z_l.  ``line_plan``: the solve's
+    line plan (``ba_plan(..., "lm").line``); Wb must be zero on the rows
+    it drops.  CPU tensors take the twin; CUDA tensors launch K3's line
+    pass (int32 ``obs_cam``)."""
+    if _device_kind("schur_matvec_line", Wb) == "cpu":
+        return schur_matvec_line_twin(Wb, obs_cam, x, cam_free_f, Binv)
+    L, kL = Wb.shape[:2]
+    C = cam_free_f.shape[0]
+    _check_schur("schur_matvec_line", Wb, line_plan, L,
+                 obs_cam=(obs_cam, (L, kL)), x=(x, (C, 6)),
+                 cam_free_f=(cam_free_f, (C,)), Binv=(Binv, (L, 4, 4)))
+    w = torch.empty((L, 4), dtype=Wb.dtype, device=Wb.device)
+    z = torch.empty_like(w)
+    fn = getattr(load_library()["schur_cg"],
+                 f"schur_line_{_suffix(Wb.dtype)}")
+    err = fn(Wb.data_ptr(), obs_cam.data_ptr(), x.data_ptr(),
+             cam_free_f.data_ptr(), Binv.data_ptr(),
+             line_plan.perm.data_ptr(), line_plan.offsets.data_ptr(), C, L,
+             L * kL, w.data_ptr(), z.data_ptr(), _stream(Wb.device))
+    _raise_on("schur_matvec_line", err)
+    _count("schur_matvec/line", (C, L, L * kL))
+    return w, z
+
+
+def schur_matvec_cam(Wb, w, cam_free_f, cam_plan, Hcc_d=None, x=None,
+                     gc=None):
+    """K3's camera pass (C, 6): v_c = sum over camera c's rows of Wb
+    w[line]; (Hcc_d x_m - v) m + x (1 - m) (the matvec, given Hcc_d and
+    x), or with ``gc`` the right-hand side (-gc + v) m.  ``cam_plan``: the
+    solve's camera plan.  CPU tensors take the twin; CUDA tensors launch
+    K3's camera pass."""
+    rhs = gc is not None
+    if rhs == (Hcc_d is not None or x is not None):
+        raise ValueError("schur_matvec_cam: pass Hcc_d and x, or gc")
+    if _device_kind("schur_matvec_cam", Wb) == "cpu":
+        return schur_matvec_cam_twin(Wb, w, cam_free_f, cam_plan.key,
+                                     Hcc_d, x, gc)
+    L, kL = Wb.shape[:2]
+    C = cam_free_f.shape[0]
+    blocks = {"w": (w, (L, 4)), "cam_free_f": (cam_free_f, (C,))}
+    if rhs:
+        blocks["gc"] = (gc, (C, 6))
+    else:
+        blocks.update(Hcc_d=(Hcc_d, (C, 6, 6)), x=(x, (C, 6)))
+    _check_schur("schur_matvec_cam", Wb, cam_plan, C, **blocks)
+    out = torch.empty((C, 6), dtype=Wb.dtype, device=Wb.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = getattr(load_library()["schur_cg"], f"schur_cam_{_suffix(Wb.dtype)}")
+    err = fn(int(rhs), Wb.data_ptr(), w.data_ptr(), cam_plan.perm.data_ptr(),
+             cam_plan.offsets.data_ptr(), cam_free_f.data_ptr(), ptr(Hcc_d),
+             ptr(x), ptr(gc), C, kL, L * kL, out.data_ptr(),
+             _stream(Wb.device))
+    _raise_on("schur_matvec_cam", err)
+    _count("schur_matvec/cam", (C, L, L * kL))
+    return out
+
+
+def schur_jacobi(Wb, Binv, Hcc_d, cam_free_f, cam_plan):
+    """K4: the SCHUR_JACOBI blocks (C, 6, 6), Hcc_d minus the sum over each
+    camera's rows of Wb Binv[line] Wb^T, the identity for a fixed camera.
+    CPU tensors take the twin; CUDA tensors launch K4."""
+    if _device_kind("schur_jacobi", Wb) == "cpu":
+        return schur_jacobi_twin(Wb, Binv, Hcc_d, cam_free_f, cam_plan.key)
+    L, kL = Wb.shape[:2]
+    C = cam_free_f.shape[0]
+    _check_schur("schur_jacobi", Wb, cam_plan, C, Binv=(Binv, (L, 4, 4)),
+                 Hcc_d=(Hcc_d, (C, 6, 6)), cam_free_f=(cam_free_f, (C,)))
+    P = torch.empty((C, 6, 6), dtype=Wb.dtype, device=Wb.device)
+    fn = getattr(load_library()["schur_cg"],
+                 f"schur_jacobi_{_suffix(Wb.dtype)}")
+    err = fn(Wb.data_ptr(), Binv.data_ptr(), cam_plan.perm.data_ptr(),
+             cam_plan.offsets.data_ptr(), cam_free_f.data_ptr(),
+             Hcc_d.data_ptr(), C, kL, L * kL, P.data_ptr(),
+             _stream(Wb.device))
+    _raise_on("schur_jacobi", err)
+    _count("schur_jacobi", (C, L, L * kL))
+    return P

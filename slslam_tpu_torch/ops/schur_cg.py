@@ -15,19 +15,22 @@ design; in short:
   stops by Ceres's eta forcing (||r|| <= eta ||rhs||).
 
 On Hopper the evaluate is K2's ``lm`` variant (``ops/kernels.py``), one
-launch per LM iteration; the per-camera sums over rows (the matvec's and
-the preconditioner's) are K1 ``segment_sum`` over the solve's camera plan,
-built once per solve together with the line plan (``ba_plan(..., "lm")``).
-Where JAX gathers through the (C, kC) camera permutation, this port reads
-the camera plan, so ``cam_perm`` is not an argument of the solver.  The LM
-and PCG loops are Python loops that read their condition from the device
-once per iteration.  On CPU tensors the kernels' plain twins run.
+launch per LM iteration.  The PCG's work over rows is K3 and K4 over the
+solve's camera and line plans, built once per solve (``ba_plan(...,
+"lm")``): each matvec is K3's line pass (w = Binv W^T x) and camera pass
+(S x), the right-hand side one camera pass, the back-substitution's
+coupling one line pass and the SCHUR_JACOBI blocks one K4 launch, each
+reading only the valid rows.  Where JAX gathers through the (C, kC)
+camera permutation, this port reads the camera plan, so ``cam_perm`` is
+not an argument of the solver.  The LM and PCG loops are Python loops
+that read their condition from the device once per iteration.  On CPU
+tensors the kernels' plain twins run: the JAX module's einsums.
 
 The pose priors (``prior_c``, the odometry chain, and ``prior_edges``,
 general pose constraints such as loop edges) take their residuals and
 Jacobians from ``ops/pose_graph.py``; their per-camera sums, and their
-off-diagonal coupling in each PCG matvec, are K1 sums over the edges'
-node plan.
+off-diagonal coupling in each PCG matvec (added to K3's output), are K1
+sums over the edges' node plan.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .kernels import ba_plan, fused_eval, segment_sum
+from .kernels import (ba_plan, fused_eval, schur_jacobi, schur_matvec_cam,
+                      schur_matvec_line, segment_sum)
 from .residuals import lba_residual_batch, robust_weights
 from .schur_ba import (_INIT_RADIUS, _MAX_DIAG, _MIN_DIAG,
                        _MIN_RELATIVE_DECREASE, _inv4_equilibrated,
@@ -180,67 +184,73 @@ def _cost_lm(cam_wt, line_orth, obs, obs_cam, w_valid, baseline,
 # Matrix-free Schur solve (PCG with SCHUR_JACOBI preconditioner)
 # ---------------------------------------------------------------------------
 
-def _solve_step_cg(Hcc, Hll, gc, gl, Wb, obs_cam, cam_plan, lam,
-                   cam_free_f, line_free_f, cg_iters, eta, Hoff=None,
-                   prior=None):
-    """(H + lam D^2) delta = -g by PCG on the reduced camera system
-    (schur_cg.py:173-277).  ``cam_plan``: the camera plan of the valid
-    rows; every per-camera sum over rows is one K1 call over it.  ``Hoff``
-    (E,6,6): the pose priors' coupling of cameras (ei, ej) of ``prior``
-    (a ``schur_ba.PriorEdges``), added to each matvec by one K1 sum over
-    the edges' node plan.  Returns (dc, dl, damp_quad, g_dot_d, PCG
-    iterations)."""
-    C = Hcc.shape[0]
-    L, kL = Wb.shape[:2]
+def damped_blocks(Hcc, Hll, lam):
+    """The LM-damped blocks of one step (schur_cg.py:180-187): the clamped
+    diagonals diag_c (C,6) and diag_l (L,4), Binv = (Hll + lam D_l)^-1
+    (L,4,4) by the equilibrated inverse, and Hcc_d = Hcc + lam D_c
+    (C,6,6), both contiguous."""
     dtype, dev = Hcc.dtype, Hcc.device
-    oc = obs_cam.long()
-
     diag_c = torch.clamp(torch.diagonal(Hcc, dim1=-2, dim2=-1),
                          _MIN_DIAG, _MAX_DIAG)
     diag_l = torch.clamp(torch.diagonal(Hll, dim1=-2, dim2=-1),
                          _MIN_DIAG, _MAX_DIAG)
     eye4 = torch.eye(4, dtype=dtype, device=dev)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
-    Binv = _inv4_equilibrated(Hll + lam * diag_l[..., None] * eye4)
-    Hcc_d = Hcc + lam * diag_c[..., None] * eye6
+    Binv = _inv4_equilibrated(Hll + lam * diag_l[..., None]
+                              * eye4).contiguous()
+    Hcc_d = (Hcc + lam * diag_c[..., None] * eye6).contiguous()
+    return diag_c, diag_l, Binv, Hcc_d
 
-    m = cam_free_f[:, None]                                # (C,1)
 
-    def cam_sum(rows):
-        """(L, kL, ...) per-row values -> (C, ...) sums over the rows of
-        each camera (K1 over the camera plan)."""
-        flat = rows.reshape(L * kL, -1).contiguous()
-        out = segment_sum(flat, cam_plan.key, C, plan=cam_plan)
-        return out.reshape((C,) + rows.shape[2:])
+def schur_matvec(x, Wb, obs_cam, cam_free_f, Binv, Hcc_d, cam_plan,
+                 line_plan, Hoff=None, prior=None):
+    """S x (C, 6) with S = Hcc_d - W Binv W^T (+ the priors' coupling
+    ``Hoff`` of cameras (ei, ej) of ``prior``), fixed cameras -> identity:
+    K3's line pass, then its camera pass; the priors' rows by one K1 sum,
+    masked and added (slslam_tpu/ops/schur_cg.py:198-214)."""
+    w, _ = schur_matvec_line(Wb, obs_cam, x, cam_free_f, Binv, line_plan)
+    Sx = schur_matvec_cam(Wb, w, cam_free_f, cam_plan, Hcc_d=Hcc_d, x=x)
+    if Hoff is None:
+        return Sx
+    m = cam_free_f[:, None]
+    xm = x * m
+    rows = torch.cat([torch.einsum("eab,eb->ea", Hoff, xm[prior.ej]),
+                      torch.einsum("eba,eb->ea", Hoff, xm[prior.ei])])
+    return Sx + segment_sum(rows.contiguous(), prior.plan.gkey,
+                            Hcc_d.shape[0], plan=prior.plan.gplan) * m
+
+
+def _solve_step_cg(Hcc, Hll, gc, gl, Wb, obs_cam, cam_plan, lam,
+                   cam_free_f, line_free_f, cg_iters, eta, Hoff=None,
+                   prior=None, line_plan=None):
+    """(H + lam D^2) delta = -g by PCG on the reduced camera system
+    (schur_cg.py:173-277).  ``cam_plan`` and ``line_plan``: the camera and
+    line plans of the valid rows (``lm_plan``); the kernels read them, the
+    CPU twins the camera plan's key only.  Each matvec is K3's line and
+    camera passes, the right-hand side a camera pass, the preconditioner's
+    blocks one K4 launch, the back-substitution's coupling a line pass.
+    ``Hoff`` (E,6,6): the pose priors' coupling of cameras (ei, ej) of
+    ``prior`` (a ``schur_ba.PriorEdges``), added to each matvec by one K1
+    sum over the edges' node plan.  Returns (dc, dl, damp_quad, g_dot_d,
+    PCG iterations)."""
+    dtype, dev = Hcc.dtype, Hcc.device
+    oc = obs_cam.to(torch.int32).contiguous()
+    Wb = Wb.contiguous()
+    diag_c, diag_l, Binv, Hcc_d = damped_blocks(Hcc, Hll, lam)
+    mf = cam_free_f.contiguous()
+    m = mf[:, None]                                        # (C,1)
 
     def matvec(x):
-        """S x with S = Hcc_d - W Binv W^T (+ the priors' coupling of
-        cameras (ei, ej)), fixed cameras -> identity."""
-        xm = x * m
-        y = torch.einsum("lkab,lka->lkb", Wb, xm[oc])      # (L,kL,4)
-        z = torch.sum(y, dim=1)                            # (L,4)
-        w = torch.einsum("lab,lb->la", Binv, z)            # (L,4)
-        u = torch.einsum("lkab,lb->lka", Wb, w)            # (L,kL,6)
-        Sx = torch.einsum("cab,cb->ca", Hcc_d, xm) - cam_sum(u)
-        if Hoff is not None:
-            rows = torch.cat([torch.einsum("eab,eb->ea", Hoff, xm[prior.ej]),
-                              torch.einsum("eba,eb->ea", Hoff,
-                                           xm[prior.ei])])
-            Sx = Sx + segment_sum(rows.contiguous(), prior.plan.gkey, C,
-                                  plan=prior.plan.gplan)
-        return Sx * m + x * (1.0 - m)
+        return schur_matvec(x, Wb, oc, mf, Binv, Hcc_d, cam_plan, line_plan,
+                            Hoff, prior)
 
     # rhs = -gc + W Binv gl
-    w0 = torch.einsum("lab,lb->la", Binv, gl)
-    u0 = torch.einsum("lkab,lb->lka", Wb, w0)
-    rhs = (-gc + cam_sum(u0)) * m
+    w0 = torch.einsum("lab,lb->la", Binv, gl).contiguous()
+    rhs = schur_matvec_cam(Wb, w0, mf, cam_plan, gc=gc.contiguous())
 
     # SCHUR_JACOBI: exact 6x6 diagonal blocks of S (one obs per (cam,line)
     # pair, so only the camera's own rows contribute)
-    T = torch.einsum("lkab,lbc,lkdc->lkad", Wb, Binv, Wb)  # (L,kL,6,6)
-    P = Hcc_d - cam_sum(T)
-    P = torch.where(m[..., None] > 0, P, eye6)
-    Minv = _inv4_equilibrated(P)                           # size-agnostic
+    Minv = _inv4_equilibrated(schur_jacobi(Wb, Binv, Hcc_d, mf, cam_plan))
 
     def precond(r):
         return torch.einsum("cab,cb->ca", Minv, r)
@@ -271,9 +281,9 @@ def _solve_step_cg(Hcc, Hll, gc, gl, Wb, obs_cam, cam_plan, lam,
         it += 1
     dc = x * m
 
-    # back-substitute line updates
-    y = torch.einsum("lkab,lka->lkb", Wb, dc[oc])
-    coup = torch.sum(y, dim=1)                             # (L,4)
+    # back-substitute line updates: coup = W^T dc, K3's line pass
+    _, coup = schur_matvec_line(Wb, oc, dc.contiguous(), mf, Binv,
+                                line_plan)
     dl = -torch.einsum("lab,lb->la", Binv, gl + coup)
     dl = dl * line_free_f[:, None]
 
@@ -370,7 +380,7 @@ def global_ba_cg(cam_wt, line_orth, obs, obs_cam, obs_valid, cam_free,
             Hcc, gc = Hcc + Hcc_e, gc + gc_e
         dc, dl, damp_quad, g_dot_d, n_cg = _solve_step_cg(
             Hcc, Hll, gc, gl, Wb, obs_cam, plan.cam, lam, cam_free_f,
-            line_free_f, cg_iters, eta, Hoff, prior)
+            line_free_f, cg_iters, eta, Hoff, prior, line_plan=plan.line)
         cg_total += n_cg
 
         cam_new = cam + dc

@@ -17,6 +17,10 @@ lines through the chain rule; the interactive engine on the card
 against the CPU; the image front-end's maps, descriptors and ``cli
 track`` on the card against the CPU; and the large map's plans, K1 and
 K2 ``lm`` at its map-scale shapes, and its f64 solve card against CPU;
+K3 ``schur_matvec`` and K4 ``schur_jacobi`` at the refine's, the
+loop-closure refine's and the map's shapes (twice bit for bit, on two
+streams, from a CUDA graph, a wrong plan refused) and on the large map's
+own blocks, and the refine PCG's launches of them;
 and the line-sharded window solve at world 1 (NCCL) and world 2 (two
 ranks sharing the card over gloo) against the single solve.  They run only
 with SLSLAM_GPU_TESTS=1 on a machine with an NVIDIA GPU and nvcc, and skip
@@ -587,6 +591,99 @@ def _large_map(argv, device, dtype):
     args = lmb.parser().parse_args(argv)
     host = lmb.build(args)
     return lmb, args, host, lmb.device_tensors(host, device, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("where", list(kernel_checks.SCHUR_SHAPES))
+def test_schur_kernels_on_gpu(cuda_device, where, dtype):
+    """K3's line and camera passes (the matvec and the right-hand side)
+    and K4 at the refine's (400, 74, 29,600), the loop-closure refine's
+    (170, 453, 25,368) and the large map's (8192, 109,147, 3,492,704, ~73 %
+    padding) shapes against their twins (kernel_checks.check_schur: 1e-12
+    in float64, the float32 rounding witness), each launched twice bit for
+    bit, on two streams and from a CUDA graph bit for bit, and a plan of
+    the wrong segments refused before any launch."""
+    shape = kernel_checks.SCHUR_SHAPES[where]
+    before = {k: kernels.launch_counts[k] for k in kernels.SCHUR_KERNELS}
+    kernel_checks.check_schur(dtype, cuda_device, shape,
+                              kernel_checks.SCHUR_PADS[where],
+                              concurrency=True)
+    assert all(kernels.launch_counts[k] > before[k]
+               for k in kernels.SCHUR_KERNELS)
+
+
+@pytest.mark.gpu
+def test_refine_pcg_runs_on_schur_kernels(cuda_device):
+    """global_ba_cg on 20 house frames on the card, float64: each PCG
+    iteration launches K3's line and camera passes once, each LM
+    iteration K3's line pass (the back-substitution), its camera pass
+    (the right-hand side) and K4 once more, and K1 never (no priors); the
+    result equals the CPU twins' within 1e-6 with the same iterations."""
+    import numpy as np
+
+    from slslam_tpu_torch.config import SlamConfig
+    from slslam_tpu_torch.engine import refine
+    from slslam_tpu_torch.hostgeom import Pose
+    from slslam_tpu_torch.ops.schur_cg import global_ba_cg, pack_line_major
+    from slslam_tpu_torch.sim import (StereoLineRenderer, house_segments,
+                                      wave_trajectory)
+    cfg = SlamConfig(compute_dtype="float64")
+    poses = wave_trajectory(num_frames=400)[:20]
+    ren = StereoLineRenderer(house_segments(), cfg.camera, noise_px=0.2,
+                             seed=4)
+    frames = [ren.observe(T) for T in poses]
+    rng = np.random.default_rng(1)
+    traj = [Pose.from_wt((T @ poses[0].inv()).inv().wt()
+                         + (rng.standard_normal(6) * 0.01 if k else 0.0))
+            for k, T in enumerate(poses)]
+    s = refine.build_problem_structure(frames, np.ones(20, bool))
+    cam0, line0 = refine.init_problem_values(s, traj, cfg, device="cpu")
+    p = pack_line_major(s.obs, s.ocam, s.olin, 20, len(s.feat_ids))
+    cfree = np.ones(20, bool)
+    cfree[0] = False
+
+    def run(dev):
+        t = lambda a: torch.as_tensor(a, device=dev)       # noqa: E731
+        return global_ba_cg(t(cam0), t(line0), t(p.obs), t(p.obs_cam),
+                            t(p.obs_valid), t(cfree),
+                            torch.ones(len(line0), dtype=torch.bool,
+                                       device=dev), cfg.camera.baseline,
+                            cfg.huber_delta, max_iters=25)
+
+    kernels.reset_launch_counts()
+    cg, _, sg = run(cuda_device)
+    n = dict(kernels.launch_counts)
+    cc, _, sc = run("cpu")
+    lm, pcg = int(sg.iterations), int(sg.cg_iterations)
+    assert lm == int(sc.iterations) > 2 and pcg == int(sc.cg_iterations)
+    assert n["schur_matvec/line"] == n["schur_matvec/cam"] == lm + pcg
+    assert n["schur_jacobi"] == n["fused_eval/lm"] == lm
+    assert n["segment_sum"] == 0
+    assert float(torch.max(torch.abs(cg.cpu() - cc))) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_large_map_schur_kernels_on_gpu(cuda_device, dtype):
+    """K3 and K4 on the large map's own blocks at 1024 cameras x 16 lines:
+    K2 ``lm``'s output at the start, damped as a PCG step damps it, held
+    to the twins (kernel_checks.check_schur_case: 1e-12 in float64; in
+    float32, where the map's ~130 m coordinates cost digits, to the
+    float64 twin within the float32 twin's rounding witness)."""
+    from slslam_tpu_torch.ops.schur_cg import _eval_system_lm, lm_plan
+    _, _, host, t = _large_map(["--cams", "1024", "--lines-per-cam", "16"],
+                               cuda_device, dtype)
+    C = t["cam_wt"].shape[0]
+    w = t["obs_valid"].to(dtype)
+    plan = lm_plan(t["obs_cam"], w, C)
+    _, Hcc, Hll, gc, gl, Wb = _eval_system_lm(
+        t["cam_wt"], t["line_orth"], t["obs"], t["obs_cam"], w,
+        t["cam_free"].to(dtype), t["line_free"].to(dtype), 0.12,
+        1.0 / 406.05, True, plan=plan)
+    case, plan = kernel_checks.schur_step_case(
+        Hcc, Hll, gc, gl, Wb, t["obs_cam"], w, t["cam_free"].to(dtype))
+    kernel_checks.check_schur_case(case, plan)
 
 
 @pytest.mark.gpu

@@ -6,8 +6,9 @@ apart, line landmarks anchored along the path, each camera seeing the
 lines anchored within +-band_m metres), the same perturbed start and the
 same JSON keys, solved by the port's ``ops/schur_cg.py``:
 ``pack_line_major`` and ``global_ba_cg`` (K2 ``lm`` once per LM
-iteration, the PCG's camera sums on K1 over the solve's segment plans,
-which the solve builds itself: no ``cam_perm``).  ``make_survey_problem``
+iteration, the PCG's matvec on K3 and its SCHUR_JACOBI blocks on K4 over
+the solve's segment plans, which the solve builds itself: no
+``cam_perm``; with ``--prior`` the priors' sums on K1).  ``make_survey_problem``
 and ``perturb_lines_metric`` are copies of the JAX tool's (the same arrays
 for the same arguments; tests/test_torch_tools.py holds them equal).
 
@@ -29,8 +30,9 @@ upload and every solve (``peak_device_bytes``), and
 written once) over its wall.  Added keys: the device and its
 ``nvidia-smi`` name and power limit, ``cg_iterations``, the kernels'
 launches by shape in one warm solve (``launch_shapes``), and with
-``--profile`` the device's busy share over one warm solve and each
-kernel's device milliseconds (``torch.profiler``).
+``--profile`` the device's busy share over one warm solve, each
+kernel's device milliseconds and the device kernels that take the most
+time (``top_device``: name, seconds, launches; ``torch.profiler``).
 """
 
 from __future__ import annotations
@@ -57,7 +59,10 @@ KERNEL_NAMES = {"segment_plan": ("plan_segments_kernel", "plan_small_kernel",
                                  "plan_hist_kernel", "plan_scan_kernel",
                                  "plan_scatter_kernel", "plan_offsets_kernel"),
                 "segment_sum": ("seg_sum_kernel",),
-                "fused_eval/lm": ("lm_rows_kernel", "lm_cams_kernel")}
+                "fused_eval/lm": ("lm_rows_kernel", "lm_cams_kernel"),
+                "schur_matvec/line": ("schur_line_kernel",),
+                "schur_matvec/cam": ("schur_cam_kernel",),
+                "schur_jacobi": ("schur_jacobi_kernel",)}
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +322,11 @@ def kernel_bytes(t, launch_shapes):
             idx = (plan.cam.key if O == plan.cam.key.numel()
                    else torch.zeros(O, dtype=torch.int32))
             work = kc.k1_work(vals, idx, P)
+        elif name.startswith("schur_"):
+            # the camera pass's right-hand side launches read gc, not
+            # Hcc_d and x: counted as matvecs, a few C x 36 floats more
+            work = kc.schur_work(name, C, L, int(plan.cam.offsets[-1]),
+                                 t["cam_wt"].element_size())
         else:
             work = kc.k2_work(args, name.split("/")[1], plan)
         total += n * work[0]
@@ -360,9 +370,15 @@ def profile_solve(run, device, wall):
                                          / calls[name]
                                          if calls[name] else None),
                       "device_kernels": len(mine)}
+    by_name = {}
+    for e in ev:
+        s, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (s + e.time_range.elapsed_us() * 1e-6, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_s": wall, "profiled_wall_s": profiled_wall,
             "device_busy_s": busy, "device_busy_share": busy / wall,
-            "device_ops": len(ev), "kernels": kern}
+            "device_ops": len(ev), "kernels": kern,
+            "top_device": [[name[:100], s, n] for name, (s, n) in top]}
 
 
 def run(args, host=None):
@@ -460,8 +476,9 @@ def run(args, host=None):
             "hbm_bytes": "torch.cuda.max_memory_allocated over the upload "
                          "and every solve (peak_device_bytes); null on the "
                          "CPU",
-            "achieved_hbm_gb_s": "the segment plans', K1's and K2's bytes "
-                                 "of one warm solve (kernel_checks' closed "
+            "achieved_hbm_gb_s": "the segment plans', K1's, K2's, K3's "
+                                 "and K4's bytes of one warm solve "
+                                 "(kernel_checks' closed "
                                  "forms) over its wall; the solve's "
                                  "PyTorch operations are not counted",
             "obs_per_s": "millions of observations times LM iterations a "
