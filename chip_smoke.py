@@ -24,7 +24,14 @@ Phases, each printing one JSON line:
    (``kernel_checks.SCHUR_SHAPES``) against their twins in float32 and
    float64, launched twice bit for bit, and timed as below, the twin being
    the JAX package's einsum chain (a later phase that launched them at one
-   of these cases reuses its check and times);
+   of these cases reuses its check and times); K3 ``schur_pcg`` (the whole
+   PCG of a damped step in one cooperative launch) at the same three
+   shapes on a real BA system (``kernel_checks.pcg_case``: K2 ``lm``'s
+   blocks, with the pose priors' coupling at the loop-closure refine's),
+   at the refine's settings (100 iterations, eta 1e-2): float64 the
+   twin's iteration count and x within 1e-10, float32 against the float64
+   twin within a rounding witness, two launches bit for bit, timed per
+   launch and per iteration against the twin (the Python loop);
 2. K2 ``fused_eval``, every variant (full, cams, lines, lm) at its
    main-path shape against its twin, float32 and float64, a repeat launch
    that must agree bit for bit; ``lm``'s first launch writes into memory
@@ -61,10 +68,11 @@ Phases, each printing one JSON line:
    CG path, the final cost below the initial one, keyframe 0 at identity,
    refined ATE <= 0.01 m (the JAX package's TPU record: 0.0016-0.0024 m);
    K2 ``lm`` launches == the CG solves' LM iterations (the staged
-   lines-only solve included), K3's line and camera passes each == LM +
-   PCG iterations (a matvec a PCG iteration; the back-substitution and
-   the right-hand side an LM iteration), K4 == LM iterations, no K1 (no
-   priors), two plans per solve, no torch.func Jacobian on CUDA tensors.  It prints
+   lines-only solve included) == K3 ``schur_pcg`` launches == K3's line
+   pass (the back-substitution) == its camera pass (the right-hand side)
+   == K4, the launches' PCG counts summing to the PCG iterations that
+   ``CGStats`` reports, no K1 (no priors), two plans per solve, no
+   torch.func Jacobian on CUDA tensors.  It prints
    the wall, LM and PCG iterations, (O, kL, kC), raw and refined ATE and
    the replay + refine keyframes per second of this seed.
 6. loop-closure mode at full size: bench.py's lc workload (the village,
@@ -73,7 +81,10 @@ Phases, each printing one JSON line:
    refine, as ``BENCH_MODE=lc`` drives it: at least 7 loop closures (the
    JAX package's documented gate), every merged track on one world
    segment, final ATE below the odometry ATE; K2 ``cams``, ``full`` and
-   ``lm``, K1, K3 and K4 each launched in the post-pass; a second post-pass over
+   ``lm``, K1, K3 and K4 each launched in the post-pass; the merged
+   refine's CG solves launch K1 twice an LM iteration where they have
+   priors (their blocks, ``prior_terms``) and never per PCG iteration (the
+   priors' coupling runs inside ``schur_pcg``); a second post-pass over
    the same replay and descriptors repeats bit for bit (trajectory,
    closures, merges).  Then the post-pass in f64 on that replay, CUDA
    against CPU, both fed the same span noise: identical closures, merges
@@ -198,7 +209,11 @@ K34_SOURCE = "slslam_tpu_torch/csrc/schur_cg.cu"
 # PCG matvec and SCHUR_JACOBI blocks (it wrote no Pallas kernel for them)
 K34_REPLACES = {"schur_matvec/line": "slslam_tpu/ops/schur_cg.py:198",
                 "schur_matvec/cam": "slslam_tpu/ops/schur_cg.py:198",
+                "schur_pcg": "slslam_tpu/ops/schur_cg.py:233",
                 "schur_jacobi": "slslam_tpu/ops/schur_cg.py:221"}
+# K3's PCG at phase 1's shapes: with the pose priors' coupling where the
+# path runs it (the loop-closure workload's merged refine)
+PCG_PRIORS = {"refine": False, "lc": True, "map": False}
 JAC_HELPERS = ("lba_residual_jac_batch", "lba_residual_jac_cam_batch",
                "lba_residual_jac_line_batch")
 REFINE_ROUNDS = 3
@@ -381,7 +396,10 @@ def ptxas_summary(reports):
                 plan = re.search(r"plan_(\w+?)_kernel", mangled)
                 k34 = re.search(r"schur_(line|cam|jacobi)_kernelI([fd])Li"
                                 r"(\d+)E(Lb([01])E)?", mangled)
-                if k34:
+                pcg = re.search(r"schur_pcg_kernelI([fd])E", mangled)
+                if pcg:
+                    name = f"schur_pcg/{dtypes[pcg[1]]}"
+                elif k34:
                     kind = {"line": "schur_matvec/line",
                             "cam": "schur_matvec/cam",
                             "jacobi": "schur_jacobi"}[k34[1]]
@@ -494,11 +512,17 @@ def phase1(dev, rec):
     for where, shape in kc.SCHUR_SHAPES.items():
         errs, times = schur_checks(dev, shape, kc.SCHUR_PADS[where])
         out[f"schur_{where}"] = errs
-        for name in kernels.SCHUR_KERNELS:
+        for name in kc.SCHUR_OUTPUTS:
             add_shape(rec[name], dict(
                 shape=list(shape), role=where, max_abs_err=max(
                     m for k, (_, m) in errs["float32"].items()
                     if k.startswith(name + " ")), **times[name]))
+        errs, times = pcg_checks(dev, shape, kc.SCHUR_PADS[where],
+                                 PCG_PRIORS[where])
+        out[f"schur_pcg_{where}"] = errs
+        add_shape(rec["schur_pcg"], dict(
+            shape=list(shape), role=where, priors=PCG_PRIORS[where],
+            max_abs_err=errs["float32"]["max_abs_err"], **times))
     out["times_float32"]["schur"] = {
         name: [dict(shape=r["shape"], **{f: r[f] for f in fields})
                for r in [rec[name]] + rec[name]["shapes"]]
@@ -632,6 +656,50 @@ def schur_times(case, plan):
         out[name].update(zip(("bound_ms", "bound_by"), kc.bound(
             *kc.schur_case_work(name, case, plan))))
     return out
+
+
+# K3's PCG checks and times by (shape, padding share, priors), as
+# _schur_checked
+_pcg_checked = {}
+
+
+def pcg_checks(dev, shape, pad_frac, priors=False):
+    """K3's PCG at ``shape`` with ``pad_frac`` padding, with or without the
+    pose priors: ({dtype: kernel_checks.check_pcg_case's result},
+    pcg_times), made once for each case."""
+    import torch
+    from slslam_tpu_torch import kernel_checks as kc
+    key = (tuple(shape), pad_frac, priors)
+    if key not in _pcg_checked:
+        case, plan = kc.pcg_case(torch.float32, dev, shape, pad_frac, priors)
+        errs = {"float32": kc.check_pcg_case(case, plan),
+                "float64": kc.check_pcg(torch.float64, dev, shape, pad_frac,
+                                        priors)}
+        _pcg_checked[key] = (errs, pcg_times(case, plan))
+    return _pcg_checked[key]
+
+
+def pcg_times(case, plan):
+    """K3's PCG on a float32 kernel_checks.pcg_case at the refine's
+    settings: a launch's eager and graph-replayed ms (the cooperative
+    launch captures into a CUDA graph), its iterations and device ms an
+    iteration, the twin's ms (the Python loop, a host read an iteration)
+    and the bound of the launch's iterations.  No PyTorch call runs a
+    PCG (``library_ms`` None)."""
+    from slslam_tpu_torch import kernel_checks as kc
+    kernel = kc.pcg_call(case, plan)
+    iterations = int(kernel()[1])
+    device_ms = graph_ms(kernel)
+    times = dict(ms=cuda_ms(kernel), device_ms=device_ms,
+                 iterations=iterations,
+                 device_ms_per_iteration=device_ms / iterations,
+                 plain_ms=cuda_ms(kc.pcg_call(case, plan, twin=True),
+                                  reps=5, warmup=1),
+                 library_ms=None)
+    times.update(zip(("bound_ms", "bound_by"), kc.bound(
+        *kc.pcg_work(case, plan, iterations))))
+    times["bound_ms_per_iteration"] = times["bound_ms"] / iterations
+    return times
 
 
 def sort_plan(key, P):
@@ -859,6 +927,7 @@ def phase5(dev, rec, replay):
     pack = schur_cg.pack_line_major(s.obs, s.ocam, s.olin, len(res.is_kf),
                                     len(s.feat_ids))
     solves = []
+    pcg_counts = []
     calls = dict.fromkeys(JAC_HELPERS + ("local_ba",), 0)
 
     def record(orig):
@@ -869,8 +938,17 @@ def phase5(dev, rec, replay):
             return out
         return wrapped
 
-    saved = refine.global_ba_cg
-    refine.global_ba_cg = record(saved)
+    def counted(orig):
+        # each PCG launch's count, kept on the device until the refine ends
+        def wrapped(*a, **k):
+            out = orig(*a, **k)
+            pcg_counts.append(out[1])
+            return out
+        return wrapped
+
+    saved = refine.global_ba_cg, schur_cg.schur_pcg
+    refine.global_ba_cg = record(saved[0])
+    schur_cg.schur_pcg = counted(saved[1])
     try:
         with contextlib.ExitStack() as stack:
             stack.enter_context(counting(
@@ -887,9 +965,10 @@ def phase5(dev, rec, replay):
             launches = dict(kernels.launch_counts)
             shapes5 = dict(kernels.launch_shapes)
     finally:
-        refine.global_ba_cg = saved
+        refine.global_ba_cg, schur_cg.schur_pcg = saved
     n_lm = sum(i for i, _ in solves)
     n_cg = sum(c for _, c in solves)
+    n_it = int(sum(int(c) for c in pcg_counts))
     jac_cuda = sum(calls[k] for k in JAC_HELPERS)
     ate_raw, ate_ref = ate(res.trajectory, poses), ate(
         ref.trajectory, poses)
@@ -899,6 +978,7 @@ def phase5(dev, rec, replay):
          "lm_iterations_per_solve": [i for i, _ in solves],
          "pcg_iterations_per_solve": [c for _, c in solves],
          "lm_iterations": n_lm, "pcg_iterations": n_cg,
+         "pcg_iterations_of_the_launches": n_it,
          "refine_iterations": ref.iterations, "O": len(s.obs),
          "kL": pack.kL, "kC": pack.kC, "fill": pack.fill,
          "initial_cost": ref.initial_cost, "final_cost": ref.final_cost,
@@ -916,10 +996,12 @@ def phase5(dev, rec, replay):
         "refined ATE <= 0.01 m": ate_ref <= 0.01,
         "lm launches == LM iterations":
             launches["fused_eval/lm"] == n_lm > 0,
-        "K3 line and camera passes == LM + PCG iterations":
-            launches["schur_matvec/line"] == launches["schur_matvec/cam"]
-            == n_lm + n_cg > 0,
-        "K4 launches == LM iterations": launches["schur_jacobi"] == n_lm,
+        "schur_pcg == K3 line == K3 camera == K4 == LM iterations":
+            launches["schur_pcg"] == launches["schur_matvec/line"]
+            == launches["schur_matvec/cam"] == launches["schur_jacobi"]
+            == n_lm == len(pcg_counts),
+        "sum of the launches' PCG counts == CGStats' PCG iterations":
+            n_it == n_cg > 0,
         "no K1 in the refine (no priors)": launches["segment_sum"] == 0,
         "two plans per solve": launches["segment_plan"] == 2 * len(solves),
         "no torch.func Jacobians on CUDA": jac_cuda == 0,
@@ -963,7 +1045,7 @@ def phase6(dev):
     import numpy as np
     import torch
     from slslam_tpu_torch import bench
-    from slslam_tpu_torch.engine import batch_lc
+    from slslam_tpu_torch.engine import batch_lc, refine
     from slslam_tpu_torch.ops import kernels
     cfg = bench.lc_config("float32")
     frames, poses, src, assigner, vocab, params = bench.lc_workload(cfg)
@@ -996,19 +1078,36 @@ def phase6(dev):
             return orig(cam, line, obs, *a, **k)
         return wrapped
 
+    # the merged refine's CG solves: (LM, PCG iterations, with priors, K1
+    # launches during the solve)
+    refine_solves = []
+
+    def record_solve(orig):
+        def wrapped(*a, **k):
+            k1 = kernels.launch_counts["segment_sum"]
+            out = orig(*a, **k)
+            refine_solves.append((
+                int(out[2].iterations), int(out[2].cg_iterations),
+                k.get("prior_c") is not None
+                or k.get("prior_edges") is not None,
+                kernels.launch_counts["segment_sum"] - k1))
+            return out
+        return wrapped
+
     posts = []
     for rep in range(2):
         kernels.reset_launch_counts()
-        saved = batch_lc.local_ba
+        saved = batch_lc.local_ba, refine.global_ba_cg
         if rep == 0:
-            batch_lc.local_ba = record(saved)
+            batch_lc.local_ba = record(saved[0])
+            refine.global_ba_cg = record_solve(saved[1])
         try:
             t0 = time.perf_counter()
             p = bench.lc_engine(cfg, src, vocab, params, dev).post_pass(
                 frames, res, pre_desc=pre)
             torch.cuda.synchronize()
         finally:
-            batch_lc.local_ba = saved
+            batch_lc.local_ba, refine.global_ba_cg = saved
         posts.append((p, time.perf_counter() - t0,
                       dict(kernels.launch_counts)))
     (p1, w1, post_launches), (p2, _, _) = posts
@@ -1029,6 +1128,7 @@ def phase6(dev):
          "refine_C_L_O": [p1.refined.num_cams, p1.refined.num_lines,
                           p1.refined.num_obs],
          "post_pass_summary": _lc_summary(p1),
+         "refine_solves_lm_pcg_priors_k1": refine_solves,
          "repeat_bit_for_bit": repeat})
     by_variant = variant_launches(post_launches)
     checks = {
@@ -1040,6 +1140,12 @@ def phase6(dev):
         "post-pass launched K1": post_launches["segment_sum"] > 0,
         "post-pass launched K3 and K4": min(
             post_launches[k] for k in kernels.SCHUR_KERNELS) > 0,
+        "the merged refine solved with priors and PCG iterations": any(
+            pri and cg > 0 for _, cg, pri, _ in refine_solves),
+        "K1 in a refine solve: 2 a LM iteration with priors (prior_terms), "
+        "none a PCG iteration": all(
+            k1 == (2 * lm if pri else 0)
+            for lm, _, pri, k1 in refine_solves),
         "post-pass repeats bit for bit": repeat,
     }
     failed = [k for k, v in checks.items() if not v]
@@ -1098,7 +1204,12 @@ def shape_kernels(dev, rec, launches, launch_shapes, role, phase,
         if (refine_cl_o is not None and (C, L) == refine_cl_o[:2]
                 and name not in ("segment_plan", "segment_sum")):
             pad = 1.0 - refine_cl_o[2] / O
-        if name in kernels.SCHUR_KERNELS:
+        if name == "schur_pcg":
+            by_dtype, times = pcg_checks(dev, shape, pad, role == "lc")
+            errs = {k: e["max_abs_err"] for k, e in by_dtype.items()}
+            for k, e in by_dtype.items():
+                worst[name, k] = max(worst.get((name, k), 0.0), e["err"])
+        elif name in kernels.SCHUR_KERNELS:
             by_dtype, by_name = schur_checks(dev, shape, pad)
             errs = {}
             for key, e in by_dtype.items():

@@ -50,8 +50,9 @@ checkout's ``schur_cg._solve_step_cg`` at the refine's, the loop-closure
 refine's and the large map's shapes (``kernel_checks.SCHUR_SHAPES``, on
 K2 ``lm``'s blocks of ``k2_lm_case`` problems, float32): its host wall,
 synchronized, at 0 and 20 PCG iterations and the difference per
-iteration -- the K3 / K4 path against the parent's einsum chain over
-K1.
+iteration, and the device's busy share over one 20-iteration step --
+so two checkouts' PCGs (an einsum chain over K1, K3's passes in a Python
+loop, or K3's one ``schur_pcg`` launch) compare in one call.
 
     python3 profile_replay.py --refine ROOT [--seed N]
 
@@ -317,8 +318,10 @@ def pcg_step_times(b, iters=20, reps=3):
     """One PCG step of the imported port's ``schur_cg._solve_step_cg`` on
     ``b`` (pcg_step_inputs), stopped after 0 and after ``iters`` PCG
     iterations (eta 0: no early stop): the least host wall of ``reps``
-    runs each, synchronized (the loop reads its condition from the device
-    each iteration), and the difference per PCG iteration."""
+    runs each, synchronized (a Python PCG loop reads its condition from
+    the device each iteration; ``schur_pcg`` is one launch), the
+    difference per PCG iteration, and the device's busy share of one
+    ``iters`` step under torch.profiler with its top kernels."""
     import inspect
     import torch
     from slslam_tpu_torch.ops import schur_cg
@@ -342,9 +345,15 @@ def pcg_step_times(b, iters=20, reps=3):
 
     wall(iters)                       # warm-up
     w0, wn = wall(0), wall(iters)
+    prof = device_profile(lambda: schur_cg._solve_step_cg(
+        b["Hcc"], b["Hll"], b["gc"], b["gl"], b["Wb"], b["obs_cam"],
+        plan.cam, b["lam"], b["cam_free_f"], b["line_free_f"], iters, 0.0,
+        **kw), torch.cuda.synchronize)
     return {"shape": b["shape"], "step_0_pcg_ms": w0,
             f"step_{iters}_pcg_ms": wn,
-            "pcg_iteration_ms": (wn - w0) / iters}
+            "pcg_iteration_ms": (wn - w0) / iters,
+            f"step_{iters}_pcg_device_busy_share": prof["device_busy_share"],
+            f"step_{iters}_pcg_top_device": prof["top_device"][:5]}
 
 
 def refine_times(root, seed=4, reps=3):

@@ -3,7 +3,8 @@ at any shape a path launched a kernel at), and the least time the card
 could take for each kernel's work.
 
 Shared by ``chip_smoke.py`` (phases 1 and 2 at the house shapes below,
-K3 and K4 at the refine's, the loop-closure refine's and the map's,
+K3 (its passes and its PCG) and K4 at the refine's, the loop-closure
+refine's and the map's,
 phases 6 and 7 at every shape ``kernels.launch_shapes`` recorded in the
 loop-closure and interactive runs) and the tests (``tests/test_torch_gpu.py``,
 ``SLSLAM_GPU_TESTS=1``; the rounding witnesses on the CPU).  Inputs are
@@ -20,7 +21,12 @@ max|twin|), per output:
 * K3 and K4 (deterministic, fixed-order sums of the same products): 1e-12
   in float64, of the largest sum of absolute terms an output adds; in
   float32 held to the float64 twin, at most twice as far as the float32
-  twin plus 1e-6 (a rounding witness).
+  twin plus 1e-6 (a rounding witness);
+* K3's PCG (100 iterations, eta 1e-2, on a real BA system): in float64
+  the twin's iteration count and x within 1e-10 of max |x|; in float32
+  held to the float64 twin, at most twice as far as the larger of the
+  float32 twin's error and how far rounding alone moves the float32 twin
+  (``rounding_gaps``), plus 1e-6.
 
 Bounds (``bound``) follow the H100 SXM data sheet: 3.35 TB/s of HBM3 and
 67 TFLOP/s of float32 outside the tensor cores, each input read once and
@@ -658,6 +664,146 @@ def _schur_concurrency(name, call, ref, case, plan):
         raise AssertionError(f"{name}: launched with a wrong plan")
 
 
+# K3's PCG: the refine's settings (global_ba_cg's defaults); f64 against
+# the f64 twin: the same iterations, x within PCG_TOL of max |x|; f32
+# against the f64 twin on the same (upcast) inputs, within PCG_F32_WITNESS
+# x the larger of the f32 twin's own error and how far rounding alone
+# moves the f32 twin (rounding_gaps at PCG_WITNESS_SCALE, a few f32
+# units in the last place), plus SCHUR_F32_FLOOR, all of max |x|
+PCG_ITERS = 100
+PCG_ETA = 1e-2
+PCG_TOL = 1e-10
+PCG_F32_WITNESS = 2.0
+PCG_WITNESS_SCALE = 3e-7
+
+
+def pcg_case(dtype, device, shape=SCHUR_SHAPES["refine"], pad_frac=0.008,
+             priors=False, lam=1e-3, seed=0):
+    """K3 PCG's inputs on a real BA system at ``shape`` (C, L, O = L kL):
+    K2 ``lm``'s blocks of k2_lm_case's problem (camera 0 and a line fixed),
+    with ``priors`` a chain over the cameras and two loop edges (their
+    Hcc and gc terms added, their coupling Hoff), damped at ``lam`` as
+    ``_solve_step_cg`` damps them; the right-hand side (a K3 camera pass)
+    and Minv (K4's blocks inverted).  (schur_case's random blocks give an
+    indefinite S, on which PCG means nothing.)  Made in float64 on
+    ``device``, then cast: (case, plan)."""
+    from .ops.schur_ba import _inv4_equilibrated, prior_terms
+    from .ops.schur_cg import _prior_edges, damped_blocks
+    C, L, O = shape
+    if O % L:
+        raise ValueError(f"pcg_case: O = {O} is not L = {L} buckets")
+    kL = O // L
+    f64 = torch.float64
+    a = k2_lm_case(f64, device, C=C, L=L, kL=kL, pad_frac=pad_frac,
+                   seed=seed)
+    plan = kernels.ba_plan(a["obs_cam"], a["obs_line"], a["w_valid"], C, L,
+                           "lm")
+    _, Hcc, Hll, gc, gl, Wb = kernels.fused_eval(**a, variant="lm",
+                                                 plan=plan)
+    Wb = Wb.reshape(L, kL, 6, 4).contiguous()
+    mf = a["cam_free_f"]
+    Hoff = prior = None
+    if priors:
+        rng = np.random.default_rng(seed + 1)
+        edges = (np.array([0, 1]), np.array([C - 1, C // 2]),
+                 rng.standard_normal((2, 6)) * 0.05)
+        prior = _prior_edges(C, rng.standard_normal((C - 1, 6)) * 0.05,
+                             edges, 0.02, 0.1, f64, device)
+        _, gc_e, Hcc_e, Hoff = prior_terms(prior, a["cam_wt"], mf)
+        Hcc, gc = Hcc + Hcc_e, gc + gc_e
+    _, _, Binv, Hcc_d = damped_blocks(Hcc, Hll, lam)
+    w0 = torch.einsum("lab,lb->la", Binv, gl).contiguous()
+    rhs = kernels.schur_matvec_cam(Wb, w0, mf, plan.cam, gc=gc.contiguous())
+    Minv = _inv4_equilibrated(kernels.schur_jacobi(Wb, Binv, Hcc_d, mf,
+                                                   plan.cam))
+
+    def f(t):
+        return None if t is None else t.to(dtype).contiguous()
+
+    return dict(rhs=f(rhs), Minv=f(Minv), Wb=f(Wb),
+                obs_cam=a["obs_cam"].reshape(L, kL).contiguous(),
+                cam_free_f=f(mf), Binv=f(Binv), Hcc_d=f(Hcc_d), Hoff=f(Hoff),
+                prior_plan=None if prior is None else prior.plan), plan
+
+
+def pcg_call(case, plan, cg_iters=PCG_ITERS, eta=PCG_ETA, twin=False):
+    """A function of no arguments running K3's PCG on ``case`` (the wrapper,
+    or with ``twin`` the plain twin on the case's device): (x, it)."""
+    a = case
+    pp = a["prior_plan"]
+    if twin:
+        return lambda: kernels.schur_pcg_twin(
+            a["rhs"], a["Minv"], a["Wb"], a["obs_cam"], a["cam_free_f"],
+            a["Binv"], a["Hcc_d"], plan.cam.key, cg_iters, eta, a["Hoff"],
+            None if pp is None else pp.gkey)
+    return lambda: kernels.schur_pcg(
+        a["rhs"], a["Minv"], a["Wb"], a["obs_cam"], a["cam_free_f"],
+        a["Binv"], a["Hcc_d"], plan.cam, plan.line, cg_iters, eta,
+        a["Hoff"], pp)
+
+
+_PCG_FLOATS = ("rhs", "Minv", "Wb", "Binv", "Hcc_d", "Hoff")
+
+
+def check_pcg_case(case, plan, cg_iters=PCG_ITERS, eta=PCG_ETA):
+    """K3's PCG on ``case`` (pcg_case) against its twin: launched twice (x
+    and the count bit for bit); float64: the twin's iterations, x within
+    PCG_TOL of max |x|; float32: against the float64 twin on the upcast
+    inputs, within the rounding witness (PCG_F32_WITNESS, above).  Returns
+    {"iterations", "twin_iterations", "err" (of max |x|), "max_abs_err",
+    and in float32 "limit", "twin_err", "witness"}; raises on any
+    failure."""
+    dtype = case["Wb"].dtype
+    run = pcg_call(case, plan, cg_iters, eta)
+    (x, it), (x2, it2) = run(), run()
+    if not (torch.equal(x, x2) and torch.equal(it, it2)):
+        raise AssertionError(f"schur_pcg {dtype}: two launches on the same "
+                             "input differ")
+    it = int(it)
+    if not 0 < it <= cg_iters:
+        raise AssertionError(f"schur_pcg {dtype}: {it} iterations")
+    if dtype == torch.float64:
+        xt, itt = pcg_call(case, plan, cg_iters, eta, twin=True)()
+        max_abs = float(torch.max(torch.abs(x - xt)))
+        out = {"iterations": it, "twin_iterations": int(itt),
+               "err": max_abs / float(torch.max(torch.abs(xt))),
+               "max_abs_err": max_abs}
+        if it != int(itt) or not out["err"] <= PCG_TOL:
+            raise AssertionError(f"schur_pcg float64: {out} (tolerance "
+                                 f"{PCG_TOL}, the twin's iterations)")
+        return out
+    case64 = {k: (v.double() if isinstance(v, torch.Tensor)
+                  and v.is_floating_point() else v) for k, v in case.items()}
+    x64, _ = pcg_call(case64, plan, cg_iters, eta, twin=True)()
+    scale = float(torch.max(torch.abs(x64)))
+    xt, itt = pcg_call(case, plan, cg_iters, eta, twin=True)()
+
+    def twin_on(arrays):
+        moved = dict(case, **dict(zip(_PCG_FLOATS, arrays)))
+        return (pcg_call(moved, plan, cg_iters, eta, twin=True)()[0],)
+
+    gaps = rounding_gaps(twin_on, [case[k] for k in _PCG_FLOATS],
+                         scale=PCG_WITNESS_SCALE)
+    max_abs = float(torch.max(torch.abs(x.double() - x64)))
+    twin_err = float(torch.max(torch.abs(xt.double() - x64))) / scale
+    witness = max(gaps["reversed"] + gaps["perturbed"]) / scale
+    out = {"iterations": it, "twin_iterations": int(itt),
+           "err": max_abs / scale, "max_abs_err": max_abs,
+           "twin_err": twin_err, "witness": witness,
+           "limit": PCG_F32_WITNESS * max(twin_err, witness)
+           + SCHUR_F32_FLOOR}
+    if not out["err"] <= out["limit"]:
+        raise AssertionError(f"schur_pcg float32: {out}")
+    return out
+
+
+def check_pcg(dtype, device, shape=SCHUR_SHAPES["refine"], pad_frac=0.008,
+              priors=False):
+    """check_pcg_case on pcg_case(dtype, device, shape, pad_frac,
+    priors)."""
+    return check_pcg_case(*pcg_case(dtype, device, shape, pad_frac, priors))
+
+
 # (C, L, O) of the interactive engine's window at the bench's buckets
 # (obs 2048, cams 48, lines 128; bench.interactive_config)
 INTERACTIVE_WINDOW = (48, 128, 2048)
@@ -745,11 +891,23 @@ def rounding_gaps(run, arrays, seeds=(0, 1, 2), scale=1e-15):
     pert = [0.0] * len(ref)
     for seed in seeds:
         rng = np.random.default_rng(seed)
-        moved = [a * (1 + scale * rng.standard_normal(a.shape))
-                 if np.issubdtype(np.asarray(a).dtype, np.floating) else a
-                 for a in arrays]
+        moved = [_moved(a, rng, scale) for a in arrays]
         pert = [max(x, y) for x, y in zip(pert, gaps(run(moved)))]
     return {"reversed": rev, "perturbed": pert}
+
+
+def _moved(a, rng, scale):
+    """A float array or tensor scaled by 1 + ``scale`` N(0, 1) elementwise
+    (a tensor keeps its dtype and device); anything else as it is."""
+    if isinstance(a, torch.Tensor):
+        if not a.is_floating_point():
+            return a
+        noise = torch.as_tensor(rng.standard_normal(tuple(a.shape)),
+                                device=a.device)
+        return (a.double() * (1 + scale * noise)).to(a.dtype)
+    if a is None or not np.issubdtype(np.asarray(a).dtype, np.floating):
+        return a
+    return a * (1 + scale * rng.standard_normal(a.shape))
 
 
 @contextlib.contextmanager
@@ -854,13 +1012,29 @@ _K2_PARTS = {
 }
 
 
-def schur_work(name, C, L, kept, e, rhs=False):
+def schur_work(name, C, L, kept, e, rhs=False, E=0):
     """(bytes, operations) of one K3 pass or K4 launch (``name`` as in
-    SCHUR_OUTPUTS; ``rhs``: the camera pass as the right-hand side) over
-    ``kept`` valid rows with e-byte floats: each valid row's Wb and plan
-    entry (the line pass also its camera index), the per-camera and
+    SCHUR_OUTPUTS; ``rhs``: the camera pass as the right-hand side), or of
+    one iteration of K3's PCG (``"schur_pcg"``, with ``E`` prior edges),
+    over ``kept`` valid rows with e-byte floats: each valid row's Wb and
+    plan entry (the line pass also its camera index), the per-camera and
     per-line blocks and the plan's offsets read once, the outputs written
     once.  Padding rows count nothing: the function does not need them."""
+    if name == "schur_pcg":
+        # the matvec's line and camera passes; the update's Minv, x, r, z,
+        # p and Ap a camera, C (36 + 5 6) values: z = Minv r (72), x, r and
+        # p (36), the dot products (24); the priors' 2E rows: Hoff once an
+        # edge, the rows' keys and plan entries, the gathered p_m, the
+        # plan's offsets, a 6 x 6 product a row (72) and its adds
+        b, o = (sum(t) for t in zip(
+            schur_work("schur_matvec/line", C, L, kept, e),
+            schur_work("schur_matvec/cam", C, L, kept, e)))
+        b += C * (36 + 5 * 6) * e
+        o += C * (72 + 36 + 24)
+        if E:
+            b += E * 36 * e + 2 * E * (4 + 4 + 6 * e) + 4 * (C + 1)
+            o += 2 * E * (72 + 6) + C * 12
+        return b, o
     row = kept * (24 * e + 4)
     if name == "schur_matvec/line":
         # z = sum of Wb^T x_m (48 + 4 a row), w = Binv z (32 a line)
@@ -886,6 +1060,19 @@ def schur_case_work(name, case, plan, rhs=False):
     return schur_work(name, case["cam_free_f"].shape[0], L,
                       int(plan.cam.offsets[-1]), case["Wb"].element_size(),
                       rhs)
+
+
+def pcg_work(case, plan, iterations):
+    """(bytes, operations) of one K3 PCG launch on a pcg_case that ran
+    ``iterations`` PCG iterations: schur_work's iteration that many times
+    (the set-up's rhs and Minv reads, once a launch, are below one
+    iteration's)."""
+    Hoff = case["Hoff"]
+    b, o = schur_work("schur_pcg", case["cam_free_f"].shape[0],
+                      case["Wb"].shape[0], int(plan.cam.offsets[-1]),
+                      case["Wb"].element_size(),
+                      E=0 if Hoff is None else Hoff.shape[0])
+    return b * iterations, o * iterations
 
 
 def k2_row_ops(variant):

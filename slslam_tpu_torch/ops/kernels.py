@@ -31,22 +31,28 @@ orth lines; the aid and asd parameterizations go through it by the chain
 rule (``fused_eval_chart``): each line is decoded to orth, K2 evaluates,
 and the line blocks are mapped by M = d orth / d p, one 4x4 per line.
 
-K3 ``schur_matvec`` and K4 ``schur_jacobi`` — the global refine's PCG on
-the reduced camera system S = Hcc_d - W Binv W^T over the line-major
-layout (``schur_cg._solve_step_cg``), which the JAX package left to XLA
-einsums (slslam_tpu/ops/schur_cg.py:173-279):
+K3 ``schur_matvec`` and ``schur_pcg``, K4 ``schur_jacobi`` — the global
+refine's PCG on the reduced camera system S = Hcc_d - W Binv W^T over the
+line-major layout (``schur_cg._solve_step_cg``), which the JAX package
+left to XLA einsums and a ``lax.while_loop`` (slslam_tpu/ops/
+schur_cg.py:173-279):
 
 * K3's line pass (``schur_matvec_line``): w = Binv z, z = sum over each
-  line's valid rows of Wb^T x_m[cam] (the matvec's first half, and the
-  back-substitution's coupling z);
-* K3's camera pass (``schur_matvec_cam``): the matvec's per-camera sums of
-  Wb w[line] and S x with fixed cameras as the identity, or the
-  right-hand side (-gc + W Binv gl) m;
+  line's valid rows of Wb^T x_m[cam] (the back-substitution's coupling z);
+* K3's camera pass (``schur_matvec_cam``): the per-camera sums of Wb
+  w[line] and S x with fixed cameras as the identity, or the right-hand
+  side (-gc + W Binv gl) m;
+* K3's PCG (``schur_pcg``): the whole PCG loop of one damped LM step in
+  one cooperative launch (the passes' device functions on the search
+  direction, the preconditioner, the dot products, the pose priors'
+  coupling over their node plan and the stop test), with no host read;
 * K4 (``schur_jacobi``): the SCHUR_JACOBI blocks Hcc_d - sum of Wb Binv
   Wb^T over each camera's rows, the identity for a fixed camera.
 
 Each reads only the valid rows, through the solve's line or camera plan,
-with no (rows, ...) intermediate in memory.  Source: ``csrc/schur_cg.cu``.
+with no (rows, ...) intermediate in memory.  Source: ``csrc/schur_cg.cu``;
+``schur_pcg``'s grid barriers (``cooperative_groups::this_grid().sync()``)
+need no relocatable device code (``-rdc``) on this toolkit.
 
 Each wrapper takes its plain-PyTorch twin for CPU tensors only; for CUDA
 tensors it launches the kernel or raises.  The kernels are built with
@@ -85,7 +91,8 @@ VARIANTS = ("full", "cams", "lines", "lm")
 # launches of each kernel since the last reset_launch_counts(), and the
 # same launches by shape: (kernel, shape) -> launches, the shape (O, P) for
 # the plan, (O, D, P) for K1 and (C, L, O) for K2, K3 and K4
-SCHUR_KERNELS = ("schur_matvec/line", "schur_matvec/cam", "schur_jacobi")
+SCHUR_KERNELS = ("schur_matvec/line", "schur_matvec/cam", "schur_pcg",
+                 "schur_jacobi")
 launch_counts: Dict[str, int] = {
     "segment_plan": 0, "segment_sum": 0,
     **{f"fused_eval/{v}": 0 for v in VARIANTS},
@@ -101,6 +108,8 @@ _tickets: Dict[tuple, torch.Tensor] = {}  # (device, stream) -> counter
 # device -> [zeroed counters for captured launches, how many are taken]
 _graph_tickets: Dict[torch.device, list] = {}
 _GRAPH_TICKETS = 4096
+# (device, dtype, C, L, O) -> schur_pcg's grid
+_pcg_blocks: Dict[tuple, int] = {}
 
 
 def reset_launch_counts():
@@ -155,6 +164,11 @@ def _bind(libs):
         fn = getattr(k3, f"schur_jacobi_{suf}")
         fn.argtypes = [p, p, p, p, p, p, i, i, i, p, p]
         fn.restype = i
+        fn = getattr(k3, f"schur_pcg_{suf}")
+        fn.argtypes = [p] * 13 + [i, i, i, i, p, p, d, i, i, p, p, p, p]
+        fn.restype = i
+    k3.schur_pcg_blocks.argtypes = [i, i, i, i]
+    k3.schur_pcg_blocks.restype = i
 
 
 def load_library():
@@ -840,3 +854,144 @@ def schur_jacobi(Wb, Binv, Hcc_d, cam_free_f, cam_plan):
     _raise_on("schur_jacobi", err)
     _count("schur_jacobi", (C, L, L * kL))
     return P
+
+
+def schur_matvec_twin(x, Wb, obs_cam, cam_free_f, Binv, Hcc_d, cam_key,
+                      Hoff=None, gkey=None):
+    """Plain version of the PCG's matvec S x (slslam_tpu/ops/schur_cg.py:
+    198-214): K3's line and camera passes' twins, then the priors'
+    coupling: rows Hoff_e x_m[ej] keyed by camera ei and Hoff_e^T x_m[ei]
+    keyed by ej (``gkey`` = cat(ei, ej), the edges' node rows), summed per
+    camera (``segment_sum_twin``) and masked."""
+    w, _ = schur_matvec_line_twin(Wb, obs_cam, x, cam_free_f, Binv)
+    Sx = schur_matvec_cam_twin(Wb, w, cam_free_f, cam_key, Hcc_d=Hcc_d, x=x)
+    if Hoff is None:
+        return Sx
+    E = Hoff.shape[0]
+    ei, ej = gkey[:E].long(), gkey[E:].long()
+    m = cam_free_f[:, None]
+    xm = x * m
+    rows = torch.cat([torch.einsum("eab,eb->ea", Hoff, xm[ej]),
+                      torch.einsum("eba,eb->ea", Hoff, xm[ei])])
+    return Sx + segment_sum_twin(rows.contiguous(), gkey,
+                                 Hcc_d.shape[0]) * m
+
+
+def schur_pcg_twin(rhs, Minv, Wb, obs_cam, cam_free_f, Binv, Hcc_d, cam_key,
+                   cg_iters, eta, Hoff=None, gkey=None):
+    """Plain version of K3's PCG (slslam_tpu/ops/schur_cg.py:233-266):
+    Ceres's eta forcing, x = 0, r = rhs, z = Minv r, p = z, then while it
+    < cg_iters and r.r > eta^2 rhs.rhs: Ap = S p (``schur_matvec_twin``),
+    alpha = rz / p.Ap (0 unless p.Ap > 0), x += alpha p, r -= alpha Ap, z
+    = Minv r, beta = r.z / rz (1 where rz = 0), p = z + beta p.  The loop
+    reads its condition from the tensors' device each iteration.  Returns
+    x (C, 6) and the iterations run, a 0-d int32 tensor."""
+    dtype, dev = rhs.dtype, rhs.device
+
+    def matvec(x):
+        return schur_matvec_twin(x, Wb, obs_cam, cam_free_f, Binv, Hcc_d,
+                                 cam_key, Hoff, gkey)
+
+    def precond(r):
+        return torch.einsum("cab,cb->ca", Minv, r)
+
+    tol2 = (eta * eta) * torch.sum(rhs * rhs)
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    one = torch.ones((), dtype=dtype, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    it = 0
+    while it < cg_iters and bool(torch.sum(r * r) > tol2):
+        Ap = matvec(p)
+        pAp = torch.sum(p * Ap)
+        pos = pAp > 0
+        alpha = torch.where(pos, rz / torch.where(pos, pAp, one), zero)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.where(rz != 0, rz, one)
+        p = z + beta * p
+        rz = rz_new
+        it += 1
+    return x, torch.tensor(it, dtype=torch.int32, device=dev)
+
+
+def schur_pcg_blocks(dtype, C, L, O, device):
+    """The grid of K3's PCG at (C, L, O) on the card ``device`` (a tensor's
+    device): the blocks it keeps resident, capped by the widest phase's
+    work.  Raises where the card takes no cooperative launch of the
+    kernel."""
+    key = (device, dtype, C, L, O)
+    if key not in _pcg_blocks:
+        with torch.cuda.device(device):
+            n = load_library()["schur_cg"].schur_pcg_blocks(
+                int(dtype == torch.float64), C, L, O)
+        if n <= 0:
+            raise RuntimeError(f"schur_pcg: the card cannot co-schedule a "
+                               f"grid of the kernel (error {-n})")
+        _pcg_blocks[key] = n
+    return _pcg_blocks[key]
+
+
+def schur_pcg(rhs, Minv, Wb, obs_cam, cam_free_f, Binv, Hcc_d, cam_plan,
+              line_plan, cg_iters, eta, Hoff=None, prior_plan=None):
+    """The PCG of one damped step on S x = rhs (K3): x (C, 6) and the
+    iterations run (a 0-d int32 tensor on rhs's device).  ``Minv`` (C, 6,
+    6): the inverted SCHUR_JACOBI blocks; ``cam_plan`` and ``line_plan``:
+    the solve's plans; ``Hoff`` (E, 6, 6) and ``prior_plan`` (the edges'
+    ``pose_graph.BlockPlan``: ``gkey`` = cat(ei, ej) and its node plan
+    ``gplan``): the pose priors' coupling, or None.
+
+    CPU tensors take the twin (the Python loop); CUDA tensors launch K3's
+    PCG once, a cooperative grid of ``schur_pcg_blocks`` blocks (a grid
+    the card cannot keep resident raises), and the host reads nothing."""
+    if (Hoff is None) != (prior_plan is None):
+        raise ValueError("schur_pcg: pass Hoff and prior_plan together")
+    gkey = None if prior_plan is None else prior_plan.gkey
+    if _device_kind("schur_pcg", Wb) == "cpu":
+        return schur_pcg_twin(rhs, Minv, Wb, obs_cam, cam_free_f, Binv,
+                              Hcc_d, cam_plan.key, cg_iters, eta, Hoff, gkey)
+    L, kL = Wb.shape[:2]
+    C = cam_free_f.shape[0]
+    dev = Wb.device
+    _check_schur("schur_pcg", Wb, line_plan, L, obs_cam=(obs_cam, (L, kL)),
+                 cam_free_f=(cam_free_f, (C,)), Binv=(Binv, (L, 4, 4)),
+                 Hcc_d=(Hcc_d, (C, 6, 6)), rhs=(rhs, (C, 6)),
+                 Minv=(Minv, (C, 6, 6)))
+    if cam_plan is None:
+        raise ValueError("schur_pcg: needs the solve's camera plan")
+    _check_plan("schur_pcg", cam_plan, L * kL, C, dev)
+    E = 0
+    prior_ptrs = [None] * 4
+    if Hoff is not None:
+        E = Hoff.shape[0]
+        gplan = prior_plan.gplan
+        if tuple(Hoff.shape) != (E, 6, 6) or Hoff.dtype != Wb.dtype:
+            raise ValueError(f"schur_pcg: Hoff is {tuple(Hoff.shape)} "
+                             f"{Hoff.dtype}, expected ({E}, 6, 6) {Wb.dtype}")
+        if tuple(gkey.shape) != (2 * E,) or gkey.dtype != torch.int32:
+            raise ValueError("schur_pcg: gkey must be (2 E,) int32")
+        _check_cuda("schur_pcg", dev, Hoff=Hoff, gkey=gkey)
+        _check_plan("schur_pcg", gplan, 2 * E, C, dev)
+        prior_ptrs = [Hoff.data_ptr(), gkey.data_ptr(),
+                      gplan.perm.data_ptr(), gplan.offsets.data_ptr()]
+    blocks = schur_pcg_blocks(Wb.dtype, C, L, L * kL, dev)
+    scratch = torch.empty(30 * C + 4 * L + 3 * blocks, dtype=Wb.dtype,
+                          device=dev)
+    x = torch.empty((C, 6), dtype=Wb.dtype, device=dev)
+    it = torch.empty((), dtype=torch.int32, device=dev)
+    fn = getattr(load_library()["schur_cg"], f"schur_pcg_{_suffix(Wb.dtype)}")
+    err = fn(Wb.data_ptr(), obs_cam.data_ptr(), cam_free_f.data_ptr(),
+             Binv.data_ptr(), Hcc_d.data_ptr(), line_plan.perm.data_ptr(),
+             line_plan.offsets.data_ptr(), cam_plan.perm.data_ptr(),
+             cam_plan.offsets.data_ptr(), *prior_ptrs, C, L, kL, E,
+             rhs.data_ptr(), Minv.data_ptr(), float(eta), int(cg_iters),
+             int(blocks), scratch.data_ptr(), x.data_ptr(), it.data_ptr(),
+             _stream(dev))
+    _raise_on("schur_pcg", err)
+    _count("schur_pcg", (C, L, L * kL))
+    return x, it

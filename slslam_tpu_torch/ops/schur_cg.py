@@ -17,20 +17,22 @@ design; in short:
 On Hopper the evaluate is K2's ``lm`` variant (``ops/kernels.py``), one
 launch per LM iteration.  The PCG's work over rows is K3 and K4 over the
 solve's camera and line plans, built once per solve (``ba_plan(...,
-"lm")``): each matvec is K3's line pass (w = Binv W^T x) and camera pass
-(S x), the right-hand side one camera pass, the back-substitution's
-coupling one line pass and the SCHUR_JACOBI blocks one K4 launch, each
-reading only the valid rows.  Where JAX gathers through the (C, kC)
-camera permutation, this port reads the camera plan, so ``cam_perm`` is
-not an argument of the solver.  The LM and PCG loops are Python loops
-that read their condition from the device once per iteration.  On CPU
-tensors the kernels' plain twins run: the JAX module's einsums.
+"lm")``): the right-hand side is one K3 camera pass, the SCHUR_JACOBI
+blocks one K4 launch, the whole PCG loop one K3 ``schur_pcg`` launch (its
+matvecs, preconditioner, dot products and stop test on the device) and
+the back-substitution's coupling one K3 line pass, each reading only the
+valid rows.  Where JAX gathers through the (C, kC) camera permutation,
+this port reads the camera plan, so ``cam_perm`` is not an argument of
+the solver.  The LM loop is a Python loop that reads its condition from
+the device once per LM iteration; a damped step reads nothing, and its
+PCG count stays on the device.  On CPU tensors the kernels' plain twins
+run: the JAX module's einsums, the PCG as a Python loop.
 
 The pose priors (``prior_c``, the odometry chain, and ``prior_edges``,
 general pose constraints such as loop edges) take their residuals and
-Jacobians from ``ops/pose_graph.py``; their per-camera sums, and their
-off-diagonal coupling in each PCG matvec (added to K3's output), are K1
-sums over the edges' node plan.
+Jacobians from ``ops/pose_graph.py``; their per-camera sums are K1 sums
+over the edges' node plan once per LM iteration, and their off-diagonal
+coupling enters each PCG matvec inside ``schur_pcg``, over the same plan.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from .kernels import (ba_plan, fused_eval, schur_jacobi, schur_matvec_cam,
-                      schur_matvec_line, segment_sum)
+                      schur_matvec_line, schur_pcg)
 from .residuals import lba_residual_batch, robust_weights
 from .schur_ba import (_INIT_RADIUS, _MAX_DIAG, _MIN_DIAG,
                        _MIN_RELATIVE_DECREASE, _inv4_equilibrated,
@@ -202,47 +204,25 @@ def damped_blocks(Hcc, Hll, lam):
     return diag_c, diag_l, Binv, Hcc_d
 
 
-def schur_matvec(x, Wb, obs_cam, cam_free_f, Binv, Hcc_d, cam_plan,
-                 line_plan, Hoff=None, prior=None):
-    """S x (C, 6) with S = Hcc_d - W Binv W^T (+ the priors' coupling
-    ``Hoff`` of cameras (ei, ej) of ``prior``), fixed cameras -> identity:
-    K3's line pass, then its camera pass; the priors' rows by one K1 sum,
-    masked and added (slslam_tpu/ops/schur_cg.py:198-214)."""
-    w, _ = schur_matvec_line(Wb, obs_cam, x, cam_free_f, Binv, line_plan)
-    Sx = schur_matvec_cam(Wb, w, cam_free_f, cam_plan, Hcc_d=Hcc_d, x=x)
-    if Hoff is None:
-        return Sx
-    m = cam_free_f[:, None]
-    xm = x * m
-    rows = torch.cat([torch.einsum("eab,eb->ea", Hoff, xm[prior.ej]),
-                      torch.einsum("eba,eb->ea", Hoff, xm[prior.ei])])
-    return Sx + segment_sum(rows.contiguous(), prior.plan.gkey,
-                            Hcc_d.shape[0], plan=prior.plan.gplan) * m
-
-
 def _solve_step_cg(Hcc, Hll, gc, gl, Wb, obs_cam, cam_plan, lam,
                    cam_free_f, line_free_f, cg_iters, eta, Hoff=None,
                    prior=None, line_plan=None):
     """(H + lam D^2) delta = -g by PCG on the reduced camera system
     (schur_cg.py:173-277).  ``cam_plan`` and ``line_plan``: the camera and
     line plans of the valid rows (``lm_plan``); the kernels read them, the
-    CPU twins the camera plan's key only.  Each matvec is K3's line and
-    camera passes, the right-hand side a camera pass, the preconditioner's
-    blocks one K4 launch, the back-substitution's coupling a line pass.
+    CPU twins the camera plan's key only.  The right-hand side is a K3
+    camera pass, the preconditioner's blocks one K4 launch, the PCG one
+    K3 ``schur_pcg`` launch, the back-substitution's coupling a line pass.
     ``Hoff`` (E,6,6): the pose priors' coupling of cameras (ei, ej) of
-    ``prior`` (a ``schur_ba.PriorEdges``), added to each matvec by one K1
-    sum over the edges' node plan.  Returns (dc, dl, damp_quad, g_dot_d,
-    PCG iterations)."""
-    dtype, dev = Hcc.dtype, Hcc.device
+    ``prior`` (a ``schur_ba.PriorEdges``), added to each matvec over the
+    edges' node plan.  Returns (dc, dl, damp_quad, g_dot_d, PCG
+    iterations), the last a 0-d int32 tensor on the blocks' device; on
+    the card nothing here reads the device from the host."""
     oc = obs_cam.to(torch.int32).contiguous()
     Wb = Wb.contiguous()
     diag_c, diag_l, Binv, Hcc_d = damped_blocks(Hcc, Hll, lam)
     mf = cam_free_f.contiguous()
     m = mf[:, None]                                        # (C,1)
-
-    def matvec(x):
-        return schur_matvec(x, Wb, oc, mf, Binv, Hcc_d, cam_plan, line_plan,
-                            Hoff, prior)
 
     # rhs = -gc + W Binv gl
     w0 = torch.einsum("lab,lb->la", Binv, gl).contiguous()
@@ -250,35 +230,14 @@ def _solve_step_cg(Hcc, Hll, gc, gl, Wb, obs_cam, cam_plan, lam,
 
     # SCHUR_JACOBI: exact 6x6 diagonal blocks of S (one obs per (cam,line)
     # pair, so only the camera's own rows contribute)
-    Minv = _inv4_equilibrated(schur_jacobi(Wb, Binv, Hcc_d, mf, cam_plan))
+    Minv = _inv4_equilibrated(schur_jacobi(Wb, Binv, Hcc_d, mf,
+                                           cam_plan)).contiguous()
 
-    def precond(r):
-        return torch.einsum("cab,cb->ca", Minv, r)
-
-    # PCG (Ceres eta forcing: stop at ||r|| <= eta * ||rhs||); the loop
-    # condition is read from the device once per iteration
-    tol2 = (eta * eta) * torch.sum(rhs * rhs)
-    x = torch.zeros_like(rhs)
-    r = rhs
-    z = precond(r)
-    p = z
-    rz = torch.sum(r * z)
-    one = torch.ones((), dtype=dtype, device=dev)
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    it = 0
-    while it < cg_iters and bool(torch.sum(r * r) > tol2):
-        Ap = matvec(p)
-        pAp = torch.sum(p * Ap)
-        pos = pAp > 0
-        alpha = torch.where(pos, rz / torch.where(pos, pAp, one), zero)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = precond(r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.where(rz != 0, rz, one)
-        p = z + beta * p
-        rz = rz_new
-        it += 1
+    # PCG (Ceres eta forcing: stop at ||r|| <= eta * ||rhs||)
+    x, it = schur_pcg(rhs, Minv, Wb, oc, mf, Binv, Hcc_d, cam_plan,
+                      line_plan, cg_iters, eta,
+                      None if Hoff is None else Hoff.contiguous(),
+                      None if Hoff is None else prior.plan)
     dc = x * m
 
     # back-substitute line updates: coup = W^T dc, K3's line pass
@@ -365,7 +324,8 @@ def global_ba_cg(cam_wt, line_orth, obs, obs_cam, obs_valid, cam_free,
     radius = torch.tensor(_INIT_RADIUS, dtype=dtype, device=dev)
     dec = torch.tensor(2.0, dtype=dtype, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
-    it = cg_total = 0
+    cg_total = torch.zeros((), dtype=torch.int32, device=dev)
+    it = 0
     # loop condition of schur_cg.py:423-429, read once per iteration
     while it < max_iters and bool(torch.logical_and(~done,
                                                     torch.isfinite(cost))):
@@ -381,7 +341,7 @@ def global_ba_cg(cam_wt, line_orth, obs, obs_cam, obs_valid, cam_free,
         dc, dl, damp_quad, g_dot_d, n_cg = _solve_step_cg(
             Hcc, Hll, gc, gl, Wb, obs_cam, plan.cam, lam, cam_free_f,
             line_free_f, cg_iters, eta, Hoff, prior, line_plan=plan.line)
-        cg_total += n_cg
+        cg_total = cg_total + n_cg
 
         cam_new = cam + dc
         line_new = line + dl
@@ -413,6 +373,5 @@ def global_ba_cg(cam_wt, line_orth, obs, obs_cam, obs_valid, cam_free,
         radius = radius_new
         it += 1
     stats = CGStats(torch.tensor(it, dtype=torch.int32, device=dev), cost0,
-                    cost, torch.tensor(cg_total, dtype=torch.int32,
-                                       device=dev))
+                    cost, cg_total)
     return cam, line, stats

@@ -20,7 +20,10 @@ K2 ``lm`` at its map-scale shapes, and its f64 solve card against CPU;
 K3 ``schur_matvec`` and K4 ``schur_jacobi`` at the refine's, the
 loop-closure refine's and the map's shapes (twice bit for bit, on two
 streams, from a CUDA graph, a wrong plan refused) and on the large map's
-own blocks, and the refine PCG's launches of them;
+own blocks, and the refine PCG's launches of them; K3 ``schur_pcg`` at
+the same shapes with and without the priors (twice and on two streams
+bit for bit, a grid the card cannot keep resident refused, a whole PCG
+step with no host read under ``torch.cuda.set_sync_debug_mode``);
 and the line-sharded window solve at world 1 (NCCL) and world 2 (two
 ranks sharing the card over gloo) against the single solve.  They run only
 with SLSLAM_GPU_TESTS=1 on a machine with an NVIDIA GPU and nvcc, and skip
@@ -605,21 +608,22 @@ def test_schur_kernels_on_gpu(cuda_device, where, dtype):
     bit, on two streams and from a CUDA graph bit for bit, and a plan of
     the wrong segments refused before any launch."""
     shape = kernel_checks.SCHUR_SHAPES[where]
-    before = {k: kernels.launch_counts[k] for k in kernels.SCHUR_KERNELS}
+    before = {k: kernels.launch_counts[k] for k in kernel_checks.SCHUR_OUTPUTS}
     kernel_checks.check_schur(dtype, cuda_device, shape,
                               kernel_checks.SCHUR_PADS[where],
                               concurrency=True)
     assert all(kernels.launch_counts[k] > before[k]
-               for k in kernels.SCHUR_KERNELS)
+               for k in kernel_checks.SCHUR_OUTPUTS)
 
 
 @pytest.mark.gpu
 def test_refine_pcg_runs_on_schur_kernels(cuda_device):
-    """global_ba_cg on 20 house frames on the card, float64: each PCG
-    iteration launches K3's line and camera passes once, each LM
-    iteration K3's line pass (the back-substitution), its camera pass
-    (the right-hand side) and K4 once more, and K1 never (no priors); the
-    result equals the CPU twins' within 1e-6 with the same iterations."""
+    """global_ba_cg on 20 house frames on the card, float64: each LM
+    iteration launches K3's PCG once (the launches' counts summing to the
+    solve's PCG iterations), K3's line pass (the back-substitution), its
+    camera pass (the right-hand side) and K4 once, and K1 never (no
+    priors); the result equals the CPU twins' within 1e-6 with the same
+    iterations."""
     import numpy as np
 
     from slslam_tpu_torch.config import SlamConfig
@@ -651,16 +655,124 @@ def test_refine_pcg_runs_on_schur_kernels(cuda_device):
                                        device=dev), cfg.camera.baseline,
                             cfg.huber_delta, max_iters=25)
 
+    from slslam_tpu_torch.ops import schur_cg
+    counts = []
+    launch = schur_cg.schur_pcg
+
+    def counted(*a, **k):
+        out = launch(*a, **k)
+        counts.append(out[1])
+        return out
+
     kernels.reset_launch_counts()
-    cg, _, sg = run(cuda_device)
+    schur_cg.schur_pcg = counted
+    try:
+        cg, _, sg = run(cuda_device)
+    finally:
+        schur_cg.schur_pcg = launch
     n = dict(kernels.launch_counts)
     cc, _, sc = run("cpu")
     lm, pcg = int(sg.iterations), int(sg.cg_iterations)
-    assert lm == int(sc.iterations) > 2 and pcg == int(sc.cg_iterations)
-    assert n["schur_matvec/line"] == n["schur_matvec/cam"] == lm + pcg
-    assert n["schur_jacobi"] == n["fused_eval/lm"] == lm
+    assert lm == int(sc.iterations) > 2 and pcg == int(sc.cg_iterations) > 0
+    assert (n["schur_pcg"] == n["schur_matvec/line"]
+            == n["schur_matvec/cam"] == n["schur_jacobi"]
+            == n["fused_eval/lm"] == lm == len(counts))
+    assert sum(int(c) for c in counts) == pcg
     assert n["segment_sum"] == 0
     assert float(torch.max(torch.abs(cg.cpu() - cc))) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("priors", [False, True], ids=["no prior", "priors"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("where", list(kernel_checks.SCHUR_SHAPES))
+def test_schur_pcg_on_gpu(cuda_device, where, dtype, priors):
+    """K3's PCG at the refine's, the loop-closure refine's and the map's
+    shapes on a real BA system (kernel_checks.pcg_case), with and without
+    the priors' coupling: float64 the twin's iterations and x within
+    PCG_TOL, float32 the rounding witness, two launches bit for bit."""
+    before = kernels.launch_counts["schur_pcg"]
+    out = kernel_checks.check_pcg(dtype, cuda_device,
+                                  kernel_checks.SCHUR_SHAPES[where],
+                                  kernel_checks.SCHUR_PADS[where], priors)
+    assert out["iterations"] > 0
+    assert kernels.launch_counts["schur_pcg"] == before + 2
+
+
+@pytest.mark.gpu
+def test_schur_pcg_two_streams_and_grid_on_gpu(cuda_device):
+    """Launches on two streams at once give an eager launch's bits; a grid
+    larger than the card keeps resident (set in the wrapper's grid cache)
+    is refused, the cooperative launch's error raising, and counts no
+    launch; the next launch runs."""
+    case, plan = kernel_checks.pcg_case(
+        torch.float32, cuda_device, kernel_checks.SCHUR_SHAPES["lc"],
+        kernel_checks.SCHUR_PADS["lc"], priors=True)
+    run = kernel_checks.pcg_call(case, plan)
+    ref = run()
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    outs = []
+    for _ in range(10):
+        outs.append(run())
+        with torch.cuda.stream(side):
+            outs.append(run())
+    main.wait_stream(side)
+    torch.cuda.synchronize()
+    for x, it in outs:
+        assert torch.equal(x, ref[0]) and torch.equal(it, ref[1])
+    C, L, O = kernel_checks.SCHUR_SHAPES["lc"]
+    dev = case["Wb"].device
+    blocks = kernels.schur_pcg_blocks(torch.float32, C, L, O, dev)
+    key = (dev, torch.float32, C, L, O)
+    before = kernels.launch_counts["schur_pcg"]
+    kernels._pcg_blocks[key] = 100 * blocks
+    try:
+        with pytest.raises(RuntimeError, match="schur_pcg"):
+            run()
+    finally:
+        kernels._pcg_blocks[key] = blocks
+    assert kernels.launch_counts["schur_pcg"] == before
+    assert torch.equal(run()[0], ref[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("priors", [False, True], ids=["no prior", "priors"])
+def test_solve_step_cg_reads_no_host_on_gpu(cuda_device, priors):
+    """A whole damped step (_solve_step_cg: damping, the right-hand side,
+    K4, the PCG launch, the back-substitution) on the card under
+    torch.cuda.set_sync_debug_mode("error"), which raises at any
+    synchronizing call; its count stays a device tensor."""
+    from slslam_tpu_torch.ops import schur_ba, schur_cg
+    C, L, O = kernel_checks.SCHUR_SHAPES["refine"]
+    a = kernel_checks.k2_lm_case(torch.float32, cuda_device, C=C, L=L,
+                                 kL=O // L)
+    plan = kernels.ba_plan(a["obs_cam"], a["obs_line"], a["w_valid"], C, L,
+                           "lm")
+    _, Hcc, Hll, gc, gl, Wb = kernels.fused_eval(**a, variant="lm",
+                                                 plan=plan)
+    Hoff = prior = None
+    if priors:
+        prior = schur_cg._prior_edges(
+            C, torch.zeros(C - 1, 6, device=cuda_device), None, 0.02, 0.1,
+            torch.float32, cuda_device)
+        _, gc_e, Hcc_e, Hoff = schur_ba.prior_terms(prior, a["cam_wt"],
+                                                    a["cam_free_f"])
+        Hcc, gc = Hcc + Hcc_e, gc + gc_e
+    lam = torch.tensor(1e-3, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = schur_cg._solve_step_cg(
+            Hcc, Hll, gc, gl, Wb.reshape(L, O // L, 6, 4),
+            a["obs_cam"].reshape(L, O // L), plan.cam, lam,
+            a["cam_free_f"], a["line_free_f"], 100, 1e-2, Hoff, prior,
+            line_plan=plan.line)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out[4].is_cuda and 0 < int(out[4]) <= 100
+    assert all(bool(torch.all(torch.isfinite(t))) for t in out[:4])
 
 
 @pytest.mark.gpu

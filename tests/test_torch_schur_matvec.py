@@ -138,8 +138,9 @@ def test_schur_twins_match_explicit_S(feature, with_prior):
 
     # the matvec: S x, fixed cameras as the identity
     S_eff = M[:, None] * S * M[None, :] + np.diag(1.0 - M)
-    Sx = tcg.schur_matvec(t["x"], Wb, oc, m, t["Binv"], t["Hcc_d"],
-                          plan.cam, plan.line, Hoff, prior)
+    Sx = kernels.schur_matvec_twin(t["x"], Wb, oc, m, t["Binv"], t["Hcc_d"],
+                                   plan.cam.key, Hoff,
+                                   None if prior is None else prior.plan.gkey)
     assert _rel(Sx.reshape(-1), S_eff @ c["x"].reshape(-1)) <= 1e-12
     if feature in ("fixed cameras", "all"):
         assert torch.equal(Sx[[0, 5]], t["x"][[0, 5]])

@@ -6,8 +6,9 @@ apart, line landmarks anchored along the path, each camera seeing the
 lines anchored within +-band_m metres), the same perturbed start and the
 same JSON keys, solved by the port's ``ops/schur_cg.py``:
 ``pack_line_major`` and ``global_ba_cg`` (K2 ``lm`` once per LM
-iteration, the PCG's matvec on K3 and its SCHUR_JACOBI blocks on K4 over
-the solve's segment plans, which the solve builds itself: no
+iteration, the PCG in one K3 launch a damped step and its SCHUR_JACOBI
+blocks on K4 over the solve's segment plans, which the solve builds
+itself: no
 ``cam_perm``; with ``--prior`` the priors' sums on K1).  ``make_survey_problem``
 and ``perturb_lines_metric`` are copies of the JAX tool's (the same arrays
 for the same arguments; tests/test_torch_tools.py holds them equal).
@@ -62,6 +63,7 @@ KERNEL_NAMES = {"segment_plan": ("plan_segments_kernel", "plan_small_kernel",
                 "fused_eval/lm": ("lm_rows_kernel", "lm_cams_kernel"),
                 "schur_matvec/line": ("schur_line_kernel",),
                 "schur_matvec/cam": ("schur_cam_kernel",),
+                "schur_pcg": ("schur_pcg_kernel",),
                 "schur_jacobi": ("schur_jacobi_kernel",)}
 
 
