@@ -15,15 +15,19 @@ It runs
    process holds the warm-up (lazy CUDA module loads, solver handles);
 2. the replay once more with ``torch.cuda.synchronize()`` around each
    stage (triangulation, RANSAC, the pose-only LM polish, the whole VO,
-   lines-GN, the window BA), then the refine with synced stages of its
-   own (the line init, K2 ``lm``'s evaluate, the PCG step, the trial
-   cost, each CG solve, the whole refine): seconds and calls per stage.
-   The syncs inflate the wall;
+   lines-GN, the window BA; the syncs inflate the wall), then the refine
+   with the port's tracer on (``slslam_tpu_torch/utils/trace.py``, no
+   syncs): host seconds and calls of each solver span (``ba.solve``,
+   ``ba.evaluate``, ``ba.step`` and its parts, ``ba.trial_cost``, ...)
+   and each solve's PCG iterations by LM step (``ba.pcg_iters``) with the
+   steps that reached ``cg_iters``;
 3. ``torch.profiler`` over the first 30 frames: the device busy time
    (union of the CUDA activity intervals), its share of the same frames'
    wall without the profiler (the profiler inflates the wall), device
    operations per frame and the ten device kernels that take most time;
-4. the same over one whole refine.
+4. the same over one whole refine, with the tracer on: the device ms of
+   the kernels launched in each solver span and the device's idle gaps
+   named by the span open on the host (``benchmark/harness/spans.py``).
 
 Each part prints one JSON line.  Without a CUDA device it exits 1.
 
@@ -69,7 +73,9 @@ import time
 
 import numpy as np
 
+from benchmark.harness.spans import join, launched_ops
 from chip_smoke import cuda_ms, graph_ms, log, nvidia_smi
+from slslam_tpu_torch.utils import trace
 
 PROFILED_FRAMES = 30
 REFINE_ROUNDS = 3
@@ -124,28 +130,6 @@ def stage_times(eng, frames, sync):
     return res, acc
 
 
-def refine_stage_times(frames, res, cfg, dev, sync):
-    """(RefineResult, {stage: {"s", "calls"}}) of the refine with
-    ``sync()`` around each of its stages."""
-    from slslam_tpu_torch.engine import refine
-    from slslam_tpu_torch.ops import schur_cg
-    stages = ((refine, "init_problem_values", "refine.line_init"),
-              (schur_cg, "_eval_system_lm", "refine.lm_evaluate"),
-              (schur_cg, "_solve_step_cg", "refine.pcg_step"),
-              (schur_cg, "_cost_lm", "refine.trial_cost"),
-              (refine, "global_ba_cg", "refine.cg_solve"),
-              (refine, "global_refine", "refine.total"))
-    acc = {label: {"s": 0.0, "calls": 0} for _, _, label in stages}
-    with contextlib.ExitStack() as stack:
-        for module, name, label in stages:
-            stack.enter_context(patched(module, name,
-                                        synced_timer(acc[label], sync)))
-        ref = refine.global_refine(frames, res.is_kf, res.trajectory,
-                                   config=cfg, rounds=REFINE_ROUNDS,
-                                   device=dev)
-    return ref, acc
-
-
 def synced_timer(slot, sync):
     """A wrapper that adds a call's synced seconds to ``slot``."""
     def wrap(fn):
@@ -161,6 +145,27 @@ def synced_timer(slot, sync):
     return wrap
 
 
+def span_seconds(spans):
+    """{span name: {"s", "calls"}}: the host seconds of the tracer's
+    spans by name."""
+    acc = {}
+    for sp in spans:
+        slot = acc.setdefault(sp["name"], {"s": 0.0, "calls": 0})
+        slot["s"] += (sp["end_ns"] - sp["start_ns"]) * 1e-9
+        slot["calls"] += 1
+    return acc
+
+
+def pcg_steps(spans, counters):
+    """Each solve's PCG iterations by LM step (``ba.pcg_iters``) and its
+    steps that reached its ``cg_iters``."""
+    cap = {sp["id"]: sp["attrs"]["cg_iters"] for sp in spans
+           if sp["name"] == "ba.solve"}
+    return [{"steps": c["values"],
+             "capped": sum(v >= cap[c["root"]] for v in c["values"])}
+            for c in counters if c["name"] == "ba.pcg_iters"]
+
+
 def busy_seconds(intervals):
     """Length of the union of (start, end) intervals."""
     total, end = 0.0, -np.inf
@@ -173,10 +178,13 @@ def busy_seconds(intervals):
 
 
 def device_profile(run, sync):
-    """Device activity of ``run()``: its plain wall, then the union of the
-    CUDA activity intervals of a profiled run and the top kernels."""
+    """Device activity of ``run()``: its plain wall, then a profiled run
+    with the port's tracer on: the union of the CUDA activity intervals,
+    the top kernels, the device ms of the kernels launched in each span
+    (with its enclosing spans) and the longest idle gaps, named by the
+    span open on the host.  (``--kernels ROOT`` imports the port anew, so
+    its runs record no span here.)"""
     import torch
-    from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -186,22 +194,31 @@ def device_profile(run, sync):
     sync()
     plain_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        run()
-        sync()
+    trace.enable()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            run()
+            sync()
+        spans, _ = trace.take()
+    finally:
+        trace.disable()
     wall = time.perf_counter() - t0
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = busy_seconds([(e.time_range.start * 1e-6, e.time_range.end * 1e-6)
-                         for e in dev])
+    ops = launched_ops(prof)
+    j = join(ops, spans)
+    busy = j["busy_ns"] * 1e-9
     by_name = {}
-    for e in dev:
-        s, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (s + e.time_range.elapsed_us() * 1e-6, n + 1)
+    for s, e, name, _ in ops:
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + (e - s) * 1e-9, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    gaps = sorted(j["gaps_ns"].items(), key=lambda kv: -kv[1])[:10]
     return {"wall_s": plain_wall, "profiled_wall_s": wall,
             "device_busy_s": busy, "device_busy_share": busy / plain_wall,
-            "device_ops": len(dev),
-            "top_device": [[name[:100], s, n] for name, (s, n) in top]}
+            "device_ops": len(ops),
+            "top_device": [[name[:100], s, n] for name, (s, n) in top],
+            "device_ms_by_span": {k: v * 1e-6
+                                  for k, v in j["device_ns"].items()},
+            "idle_gaps_ms": [[k[:100], v * 1e-6] for k, v in gaps]}
 
 
 def same_run(a, b):
@@ -485,9 +502,15 @@ def main():
     t0 = time.perf_counter()
     res, stages = stage_times(eng, frames, sync)
     wall = time.perf_counter() - t0
-    ref, refine_stages = refine_stage_times(frames, res, cfg, dev, sync)
+    trace.enable()
+    try:
+        ref = refine(res)
+        spans, counters = trace.take()
+    finally:
+        trace.disable()
     log({"part": 2, "wall_synced_s": wall, "stages": stages,
-         "refine_stages": refine_stages,
+         "refine_spans": span_seconds(spans),
+         "refine_pcg_steps": pcg_steps(spans, counters),
          "refine_iterations": ref.iterations,
          "run0_vs_synced": same_run(runs[0], res)})
 

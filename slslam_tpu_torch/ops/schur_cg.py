@@ -33,6 +33,24 @@ general pose constraints such as loop edges) take their residuals and
 Jacobians from ``ops/pose_graph.py``; their per-camera sums are K1 sums
 over the edges' node plan once per LM iteration, and their off-diagonal
 coupling enters each PCG matvec inside ``schur_pcg``, over the same plan.
+
+Spans and a counter (``utils/trace.py``; off by default; read by
+``profile_replay.py``, joined to a profile by
+``benchmark/harness/spans.py``):
+
+* ``ba.solve``: one ``global_ba_cg`` call (attrs C, L, O = L kL rows,
+  max_iters, cg_iters), the root of the others;
+* ``ba.start``: the plans, the priors' edges and the start's cost;
+* ``ba.read``: each read of the loop condition, the one host-device
+  synchronisation of an LM iteration;
+* ``ba.iter``: one LM iteration's body (attr k), holding
+  ``ba.evaluate`` (K2 ``lm`` and the priors' terms), ``ba.step``
+  (``_solve_step_cg``: ``ba.step.blocks``, the damped blocks and the
+  right-hand side; ``ba.step.precond``, K4 and the 6x6 inverses;
+  ``ba.step.pcg``, K3 ``schur_pcg``; ``ba.step.backsub``, the line
+  updates and the step's reductions), ``ba.trial_cost`` and
+  ``ba.update`` (the accept, radius and convergence arithmetic);
+* counter ``ba.pcg_iters``: each LM step's PCG iterations, in order.
 """
 
 from __future__ import annotations
@@ -42,6 +60,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from .kernels import (ba_plan, fused_eval, schur_jacobi, schur_matvec_cam,
                       schur_matvec_line, schur_pcg)
 from .residuals import lba_residual_batch, robust_weights
@@ -218,37 +237,41 @@ def _solve_step_cg(Hcc, Hll, gc, gl, Wb, obs_cam, cam_plan, lam,
     edges' node plan.  Returns (dc, dl, damp_quad, g_dot_d, PCG
     iterations), the last a 0-d int32 tensor on the blocks' device; on
     the card nothing here reads the device from the host."""
-    oc = obs_cam.to(torch.int32).contiguous()
-    Wb = Wb.contiguous()
-    diag_c, diag_l, Binv, Hcc_d = damped_blocks(Hcc, Hll, lam)
-    mf = cam_free_f.contiguous()
-    m = mf[:, None]                                        # (C,1)
+    with trace.span("ba.step.blocks"):
+        oc = obs_cam.to(torch.int32).contiguous()
+        Wb = Wb.contiguous()
+        diag_c, diag_l, Binv, Hcc_d = damped_blocks(Hcc, Hll, lam)
+        mf = cam_free_f.contiguous()
+        m = mf[:, None]                                    # (C,1)
 
-    # rhs = -gc + W Binv gl
-    w0 = torch.einsum("lab,lb->la", Binv, gl).contiguous()
-    rhs = schur_matvec_cam(Wb, w0, mf, cam_plan, gc=gc.contiguous())
+        # rhs = -gc + W Binv gl
+        w0 = torch.einsum("lab,lb->la", Binv, gl).contiguous()
+        rhs = schur_matvec_cam(Wb, w0, mf, cam_plan, gc=gc.contiguous())
 
     # SCHUR_JACOBI: exact 6x6 diagonal blocks of S (one obs per (cam,line)
     # pair, so only the camera's own rows contribute)
-    Minv = _inv4_equilibrated(schur_jacobi(Wb, Binv, Hcc_d, mf,
-                                           cam_plan)).contiguous()
+    with trace.span("ba.step.precond"):
+        Minv = _inv4_equilibrated(schur_jacobi(Wb, Binv, Hcc_d, mf,
+                                               cam_plan)).contiguous()
 
     # PCG (Ceres eta forcing: stop at ||r|| <= eta * ||rhs||)
-    x, it = schur_pcg(rhs, Minv, Wb, oc, mf, Binv, Hcc_d, cam_plan,
-                      line_plan, cg_iters, eta,
-                      None if Hoff is None else Hoff.contiguous(),
-                      None if Hoff is None else prior.plan)
-    dc = x * m
+    with trace.span("ba.step.pcg"):
+        x, it = schur_pcg(rhs, Minv, Wb, oc, mf, Binv, Hcc_d, cam_plan,
+                          line_plan, cg_iters, eta,
+                          None if Hoff is None else Hoff.contiguous(),
+                          None if Hoff is None else prior.plan)
 
     # back-substitute line updates: coup = W^T dc, K3's line pass
-    _, coup = schur_matvec_line(Wb, oc, dc.contiguous(), mf, Binv,
-                                line_plan)
-    dl = -torch.einsum("lab,lb->la", Binv, gl + coup)
-    dl = dl * line_free_f[:, None]
+    with trace.span("ba.step.backsub"):
+        dc = x * m
+        _, coup = schur_matvec_line(Wb, oc, dc.contiguous(), mf, Binv,
+                                    line_plan)
+        dl = -torch.einsum("lab,lb->la", Binv, gl + coup)
+        dl = dl * line_free_f[:, None]
 
-    damp_quad = lam * (torch.sum(diag_c * dc * dc)
-                       + torch.sum(diag_l * dl * dl))
-    g_dot_d = torch.sum(gc * dc) + torch.sum(gl * dl)
+        damp_quad = lam * (torch.sum(diag_c * dc * dc)
+                           + torch.sum(diag_l * dl * dl))
+        g_dot_d = torch.sum(gc * dc) + torch.sum(gl * dl)
     return dc, dl, damp_quad, g_dot_d, it
 
 
@@ -304,74 +327,96 @@ def global_ba_cg(cam_wt, line_orth, obs, obs_cam, obs_valid, cam_free,
     Returns (cam', line', CGStats)."""
     dtype, dev = cam_wt.dtype, cam_wt.device
     C = cam_wt.shape[0]
-    ftol, ptol = _tolerances(dtype)
-    cam_free_f = cam_free.to(dtype)
-    line_free_f = line_free.to(dtype)
-    w_valid = obs_valid.to(dtype)
-    plan = lm_plan(obs_cam, w_valid, C)
-    prior = _prior_edges(C, prior_c, prior_edges, prior_sigma_rot,
-                         prior_sigma_t, dtype, dev)
+    with trace.span("ba.solve", C=C, L=obs.shape[0],
+                    O=obs.shape[0] * obs.shape[1], max_iters=max_iters,
+                    cg_iters=cg_iters):
+        with trace.span("ba.start"):
+            ftol, ptol = _tolerances(dtype)
+            cam_free_f = cam_free.to(dtype)
+            line_free_f = line_free.to(dtype)
+            w_valid = obs_valid.to(dtype)
+            plan = lm_plan(obs_cam, w_valid, C)
+            prior = _prior_edges(C, prior_c, prior_edges, prior_sigma_rot,
+                                 prior_sigma_t, dtype, dev)
 
-    def cost_only(cw, lo):
-        cost = _cost_lm(cw, lo, obs, obs_cam, w_valid, baseline, huber_delta,
-                        robust, line_param)
-        if prior is not None:
-            cost = cost + prior_cost(prior, cw)
-        return cost
+            def cost_only(cw, lo):
+                cost = _cost_lm(cw, lo, obs, obs_cam, w_valid, baseline,
+                                huber_delta, robust, line_param)
+                if prior is not None:
+                    cost = cost + prior_cost(prior, cw)
+                return cost
 
-    cost0 = cost_only(cam_wt, line_orth)
-    cam, line, cost = cam_wt, line_orth, cost0
-    radius = torch.tensor(_INIT_RADIUS, dtype=dtype, device=dev)
-    dec = torch.tensor(2.0, dtype=dtype, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    cg_total = torch.zeros((), dtype=torch.int32, device=dev)
-    it = 0
-    # loop condition of schur_cg.py:423-429, read once per iteration
-    while it < max_iters and bool(torch.logical_and(~done,
-                                                    torch.isfinite(cost))):
-        lam = 1.0 / radius
-        _, Hcc, Hll, gc, gl, Wb = _eval_system_lm(
-            cam.contiguous(), line.contiguous(), obs, obs_cam, w_valid,
-            cam_free_f, line_free_f, baseline, huber_delta, robust,
-            line_param, plan)
-        Hoff = None
-        if prior is not None:
-            _, gc_e, Hcc_e, Hoff = prior_terms(prior, cam, cam_free_f)
-            Hcc, gc = Hcc + Hcc_e, gc + gc_e
-        dc, dl, damp_quad, g_dot_d, n_cg = _solve_step_cg(
-            Hcc, Hll, gc, gl, Wb, obs_cam, plan.cam, lam, cam_free_f,
-            line_free_f, cg_iters, eta, Hoff, prior, line_plan=plan.line)
-        cg_total = cg_total + n_cg
+            cost0 = cost_only(cam_wt, line_orth)
+            cam, line, cost = cam_wt, line_orth, cost0
+            radius = torch.tensor(_INIT_RADIUS, dtype=dtype, device=dev)
+            dec = torch.tensor(2.0, dtype=dtype, device=dev)
+            done = torch.zeros((), dtype=torch.bool, device=dev)
+            cg_total = torch.zeros((), dtype=torch.int32, device=dev)
+        it = 0
+        # loop condition of schur_cg.py:423-429, read once per iteration
+        while it < max_iters:
+            with trace.span("ba.read"):
+                go = bool(torch.logical_and(~done, torch.isfinite(cost)))
+            if not go:
+                break
+            with trace.span("ba.iter", k=it):
+                lam = 1.0 / radius
+                with trace.span("ba.evaluate"):
+                    _, Hcc, Hll, gc, gl, Wb = _eval_system_lm(
+                        cam.contiguous(), line.contiguous(), obs, obs_cam,
+                        w_valid, cam_free_f, line_free_f, baseline,
+                        huber_delta, robust, line_param, plan)
+                    Hoff = None
+                    if prior is not None:
+                        _, gc_e, Hcc_e, Hoff = prior_terms(prior, cam,
+                                                           cam_free_f)
+                        Hcc, gc = Hcc + Hcc_e, gc + gc_e
+                with trace.span("ba.step"):
+                    dc, dl, damp_quad, g_dot_d, n_cg = _solve_step_cg(
+                        Hcc, Hll, gc, gl, Wb, obs_cam, plan.cam, lam,
+                        cam_free_f, line_free_f, cg_iters, eta, Hoff, prior,
+                        line_plan=plan.line)
+                    cg_total = cg_total + n_cg
+                    trace.count("ba.pcg_iters", n_cg)
 
-        cam_new = cam + dc
-        line_new = line + dl
-        cost_new = cost_only(cam_new, line_new)
+                with trace.span("ba.trial_cost"):
+                    cam_new = cam + dc
+                    line_new = line + dl
+                    cost_new = cost_only(cam_new, line_new)
 
-        model_change = 0.5 * (damp_quad - g_dot_d)
-        rho = (cost - cost_new) / torch.clamp_min(model_change, 1e-300)
-        accept = torch.logical_and(model_change > 0,
-                                   rho > _MIN_RELATIVE_DECREASE)
-        accept = torch.logical_and(accept, torch.isfinite(cost_new))
+                with trace.span("ba.update"):
+                    model_change = 0.5 * (damp_quad - g_dot_d)
+                    rho = (cost - cost_new) / torch.clamp_min(model_change,
+                                                              1e-300)
+                    accept = torch.logical_and(model_change > 0,
+                                               rho > _MIN_RELATIVE_DECREASE)
+                    accept = torch.logical_and(accept,
+                                               torch.isfinite(cost_new))
 
-        tmp = 2.0 * rho - 1.0
-        radius_acc = radius / torch.clamp_min(1.0 - tmp ** 3, 1.0 / 3.0)
-        radius_rej = radius / dec
-        radius_new = torch.where(accept, torch.clamp_max(radius_acc, 1e16),
-                                 torch.clamp_min(radius_rej, 1e-32))
-        dec = torch.where(accept, torch.full_like(dec, 2.0), dec * 2.0)
+                    tmp = 2.0 * rho - 1.0
+                    radius_acc = radius / torch.clamp_min(1.0 - tmp ** 3,
+                                                          1.0 / 3.0)
+                    radius_rej = radius / dec
+                    radius_new = torch.where(
+                        accept, torch.clamp_max(radius_acc, 1e16),
+                        torch.clamp_min(radius_rej, 1e-32))
+                    dec = torch.where(accept, torch.full_like(dec, 2.0),
+                                      dec * 2.0)
 
-        fconv = torch.abs(cost - cost_new) <= ftol * cost
-        xnorm = torch.sqrt(torch.sum(cam * cam) + torch.sum(line * line))
-        snorm = torch.sqrt(torch.sum(dc * dc) + torch.sum(dl * dl))
-        pconv = snorm <= ptol * (xnorm + ptol)
-        converged = torch.logical_and(accept, torch.logical_or(fconv, pconv))
-        done = torch.logical_or(converged, ~(snorm > 0))
+                    fconv = torch.abs(cost - cost_new) <= ftol * cost
+                    xnorm = torch.sqrt(torch.sum(cam * cam)
+                                       + torch.sum(line * line))
+                    snorm = torch.sqrt(torch.sum(dc * dc) + torch.sum(dl * dl))
+                    pconv = snorm <= ptol * (xnorm + ptol)
+                    converged = torch.logical_and(
+                        accept, torch.logical_or(fconv, pconv))
+                    done = torch.logical_or(converged, ~(snorm > 0))
 
-        cam = torch.where(accept, cam_new, cam)
-        line = torch.where(accept, line_new, line)
-        cost = torch.where(accept, cost_new, cost)
-        radius = radius_new
-        it += 1
-    stats = CGStats(torch.tensor(it, dtype=torch.int32, device=dev), cost0,
-                    cost, cg_total)
+                    cam = torch.where(accept, cam_new, cam)
+                    line = torch.where(accept, line_new, line)
+                    cost = torch.where(accept, cost_new, cost)
+                    radius = radius_new
+            it += 1
+        stats = CGStats(torch.tensor(it, dtype=torch.int32, device=dev),
+                        cost0, cost, cg_total)
     return cam, line, stats
