@@ -36,6 +36,11 @@ Phases, each printing one JSON line:
    main-path shape against its twin, float32 and float64, a repeat launch
    that must agree bit for bit; ``lm``'s first launch writes into memory
    that held NaNs, and every Wb row its plan drops must be exactly zero;
+   K2 ``cost`` (``fused_cost``) at the refine's shape and at the large
+   map's (8192, 109,147, 3,492,704, ~73 % padding), twice bit for bit and
+   unchanged by NaNs in the rows its plan drops, timed beside the plain
+   PyTorch arithmetic over every padded row that it replaced (the JAX
+   package's ``cost_only``, ``plain_all_rows_ms``);
    phases 1 and 2 also time each kernel at the main path's shapes in
    float32: eager CUDA events over 50 launches (``ms``, the host's enqueue
    included), the replay of a CUDA graph of 50 captured launches
@@ -70,7 +75,8 @@ Phases, each printing one JSON line:
    K2 ``lm`` launches == the CG solves' LM iterations (the staged
    lines-only solve included) == K3 ``schur_pcg`` launches == K3's line
    pass (the back-substitution) == its camera pass (the right-hand side)
-   == K4, the launches' PCG counts summing to the PCG iterations that
+   == K4, K2 ``cost`` launches == those LM iterations plus one a solve
+   (its start), the launches' PCG counts summing to the PCG iterations that
    ``CGStats`` reports, no K1 (no priors), two plans per solve, no
    torch.func Jacobian on CUDA tensors.  It prints
    the wall, LM and PCG iterations, (O, kL, kC), raw and refined ATE and
@@ -130,8 +136,8 @@ Phases, each printing one JSON line:
    JSON logged, its final cost and ``rpe_final_m`` within LM_COST_RTOL /
    LM_RPE_RTOL (relative) of a float64 solve of the same problem on the
    card,
-   ``rpe_final_m < rpe_init_m``, finite values, two plans a solve, K2
-   ``lm``, K3 and K4 launched, then
+   ``rpe_final_m < rpe_init_m``, finite values, two plans a solve and one
+   for the tool's cost at the truth, K2 ``lm``, K3 and K4 launched, then
    every kernel at every shape the run launched it at (role
    "large_map"); (b) the large map at LM_PARITY in float64, card against
    CPU: at LM_PARITY_ITERS the same LM and PCG iterations, cameras within
@@ -205,6 +211,9 @@ TIMING_BUDGET_MS = 2000.0
 K1_SOURCE = "slslam_tpu_torch/csrc/segment_sum.cu"
 K2_SOURCE = "slslam_tpu_torch/csrc/fused_eval.cu"
 K34_SOURCE = "slslam_tpu_torch/csrc/schur_cg.cu"
+# what K2 ``cost`` replaces: the XLA code of the JAX package's cost_only
+# (the other K2 launches replace its Pallas evaluate)
+K2_REPLACES = {"cost": "slslam_tpu/ops/schur_cg.py:394 (XLA)"}
 # what K3's passes and K4 replace: the XLA einsums of the JAX package's
 # PCG matvec and SCHUR_JACOBI blocks (it wrote no Pallas kernel for them)
 K34_REPLACES = {"schur_matvec/line": "slslam_tpu/ops/schur_cg.py:198",
@@ -392,6 +401,7 @@ def ptxas_summary(reports):
                 mangled = m.group(1)
                 k2 = re.search(r"fused_eval_kernelI([fd])Li(\d)E", mangled)
                 lm = re.search(r"lm_(rows|cams)_kernelI([fd])E", mangled)
+                cost = re.search(r"cost_kernelI([fd])E", mangled)
                 k1 = re.search(r"seg_sum_kernelI([fd])E", mangled)
                 plan = re.search(r"plan_(\w+?)_kernel", mangled)
                 k34 = re.search(r"schur_(line|cam|jacobi)_kernelI([fd])Li"
@@ -410,6 +420,8 @@ def ptxas_summary(reports):
                             f"/{dtypes[k2[1]]}")
                 elif lm:
                     name = f"fused_eval/lm/{lm[1]}/{dtypes[lm[2]]}"
+                elif cost:
+                    name = f"fused_eval/cost/{dtypes[cost[1]]}"
                 elif k1:
                     name = f"segment_sum/{dtypes[k1[1]]}"
                 elif plan:
@@ -600,6 +612,44 @@ def k2_times(dev, variant, shape=None, pad_frac=0.008):
     return times
 
 
+def k2_cost_times(dev, shape=None, pad_frac=0.008):
+    """K2 ``cost`` at ``shape`` in float32 (kernel_checks.k2_cost_case)
+    with the solve's plan built outside the timing: eager and
+    graph-replayed ms, the twin's, the plain arithmetic over every padded
+    row that it replaced (the JAX package's ``cost_only``,
+    ``plain_all_rows_ms``) and the bound; no PyTorch call computes the
+    same function (``library_ms`` None)."""
+    import torch
+    from slslam_tpu_torch import kernel_checks as kc
+    from slslam_tpu_torch.ops import kernels
+    from slslam_tpu_torch.ops.residuals import (lba_residual_batch,
+                                                robust_weights)
+    args, plan = kc.k2_cost_case(torch.float32, dev,
+                                 shape or kc.K2_COST_SHAPES["refine"],
+                                 pad_frac)
+
+    def kernel():
+        return kernels.fused_cost(**args, plan=plan)
+
+    def all_rows():
+        a = args
+        r = lba_residual_batch(a["cam_wt"][a["obs_cam"].long()],
+                               a["line_orth"][a["obs_line"].long()],
+                               a["obs"], a["baseline"])
+        _, cost_i = robust_weights(r, a["huber_delta"], True)
+        return torch.sum(torch.where(a["w_valid"] > 0, cost_i,
+                                     torch.zeros_like(cost_i)))
+
+    C, L = args["cam_wt"].shape[0], args["line_orth"].shape[0]
+    times = dict(
+        ms=cuda_ms(kernel), device_ms=graph_ms(kernel),
+        plain_ms=cuda_ms(lambda: kernels.fused_cost_twin(**args), reps=20),
+        plain_all_rows_ms=cuda_ms(all_rows, reps=20), library_ms=None)
+    times.update(zip(("bound_ms", "bound_by"), kc.bound(*kc.cost_work(
+        C, L, int(plan.line.offsets[-1]), args["cam_wt"].element_size()))))
+    return times
+
+
 # K3 and K4's checks and times by (shape, padding share): a later phase
 # that launched them at a case phase 1 checked reuses phase 1's
 _schur_checked = {}
@@ -741,6 +791,18 @@ def phase2(dev, rec):
             **k2_times(dev, variant), shapes=[])
         out[f"{variant}_times_float32"] = {f: rec[name][f] for f in (
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
+    # K2 cost at the refine's trial points and at the large map's
+    name = "fused_eval/cost"
+    for where, shape in kc.K2_COST_SHAPES.items():
+        pad = kc.K2_COST_PADS[where]
+        errs = {str(dt)[6:]: kc.check_k2_cost(dt, dev, shape, pad)
+                for dt in (torch.float32, torch.float64)}
+        out[f"cost_{where}"] = {k: {"err": e, "max_abs_err": m}
+                                for k, (e, m) in errs.items()}
+        times = k2_cost_times(dev, shape, pad)
+        add_shape(rec[name], dict(shape=list(shape), role=where,
+                                  max_abs_err=errs["float32"][1], **times))
+        out[f"cost_{where}_times_float32"] = times
     log(out)
 
 
@@ -996,6 +1058,8 @@ def phase5(dev, rec, replay):
         "refined ATE <= 0.01 m": ate_ref <= 0.01,
         "lm launches == LM iterations":
             launches["fused_eval/lm"] == n_lm > 0,
+        "cost launches == LM iterations + solves (the starts)":
+            launches["fused_eval/cost"] == n_lm + len(solves),
         "schur_pcg == K3 line == K3 camera == K4 == LM iterations":
             launches["schur_pcg"] == launches["schur_matvec/line"]
             == launches["schur_matvec/cam"] == launches["schur_jacobi"]
@@ -1231,6 +1295,13 @@ def shape_kernels(dev, rec, launches, launch_shapes, role, phase,
                     errs[key] = max(errs.get(key, 0.0), max_abs)
                     worst[name, key] = max(worst.get((name, key), 0.0), err)
             times = k1_times(dev, *shape)
+        elif name == "fused_eval/cost":
+            errs = {}
+            for dtype in (torch.float32, torch.float64):
+                key = str(dtype)[6:]
+                err, errs[key] = kc.check_k2_cost(dtype, dev, shape, pad)
+                worst[name, key] = max(worst.get((name, key), 0.0), err)
+            times = k2_cost_times(dev, shape, pad)
         else:
             variant = name.split("/")[1]
             errs = {}
@@ -1831,7 +1902,8 @@ def phase9a(dev, rec, lmb):
         "the plan, K2 lm, K3 and K4 launched": all(
             launches[k] > 0 for k in ("segment_plan", "fused_eval/lm",
                                       *kernels.SCHUR_KERNELS)),
-        "two plans a solve": launches["segment_plan"] == 4,
+        "two plans a solve, one for the cost at the truth":
+            launches["segment_plan"] == 5,
     }
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -2425,8 +2497,8 @@ def main():
                 "slslam_tpu/ops/pallas_kernels.py:64"),
                ("segment_sum", K1_SOURCE,
                 "slslam_tpu/ops/pallas_kernels.py:64"),
-               *((f"fused_eval/{v}", K2_SOURCE, k2_line)
-                 for v in kernels.VARIANTS),
+               *((f"fused_eval/{v}", K2_SOURCE, K2_REPLACES.get(v, k2_line))
+                 for v in kernels.K2_KERNELS),
                *((name, K34_SOURCE, K34_REPLACES[name])
                  for name in kernels.SCHUR_KERNELS))}
     smi = phase0(dev)
@@ -2457,7 +2529,8 @@ def main():
     from slslam_tpu_torch import kernel_checks as kc
     checked = ({("segment_plan", s) for s in kc.PLAN_SHAPES}
                | {("segment_sum", s) for s in kc.K1_SHAPES}
-               | {(f"fused_eval/{v}", s) for v, s in kc.K2_SHAPES.items()}
+               | {(f"fused_eval/{v}", s) for v in kernels.K2_KERNELS
+                  for s in kc.K2_CHECKED_SHAPES[v]}
                | {(name, s) for name in kernels.SCHUR_KERNELS
                   for s in kc.SCHUR_SHAPES.values()}
                | set(shapes6) | set(shapes7) | set(shapes8))

@@ -1,5 +1,5 @@
 // K2: fused_eval -- the BA evaluate in one launch (lm: two), in four
-// variants.
+// variants, and a fifth, cost, that returns the robust cost alone.
 //
 // Replaces the TPU's fused_eval_pallas (slslam_tpu/ops/pallas_kernels.py:
 // 335-428) and its two kernels _make_fused_camline_kernel (:278-307) and
@@ -26,6 +26,8 @@
 //          :118-166), whose PCG matvec consumes the per-row blocks.  Rows
 //          that the plans drop (w_valid <= 0: the line-major padding) get
 //          exact zeros in Wb.  Two launches (below).
+//   cost   the robust cost alone at the parameters given: the global BA's
+//          score of an LM trial point and of its start (one launch, below).
 //
 // What bounds it on the H100: at the window shape (C = 20, L = 81,
 // O = 1600) the full variant reads ~73 KB and writes ~165 KB (f32); its
@@ -105,6 +107,34 @@
 // map's shape on an H100 80GB HBM3 at 700 W (random 64-byte reads and
 // 96-byte writes over 335 MB).
 //
+// cost replaces no TPU kernel: the JAX package left the trial point's
+// score to XLA (slslam_tpu/ops/schur_cg.py:394-406 cost_only, which
+// gathers every padded row's camera and line, runs the residual and masks
+// the padding).  Its work is the residual's value and the Huber cost of
+// each valid row, ~180 operations, so it is bound by bytes: at the large
+// map's shape it reads the parameters (~1.9 MB in f32) and each of the
+// 929,796 valid rows' observation, camera index and weight (~37 MB), one
+// value out: ~0.012 ms at the HBM rate (kernel_checks.cost_work).  The
+// 40-odd PyTorch operations over all 3.49M padded rows that it replaces
+// took ~20 ms a call there on an H100 80GB HBM3 at 700 W, the kernel
+// 0.033 ms.  Design (cost_kernel):
+//
+//   * a fixed grid of at most kCostBlocks blocks (one block a kBlock rows
+//     where there are fewer) splits the line plan's kept rows into equal
+//     contiguous chunks, read from the plan's offsets on the device, so
+//     the host needs no count and the dropped rows (the padding) are
+//     never read.  Neighbouring threads take neighbouring kept rows: a
+//     line's rows are adjacent in the line-major layout, so the
+//     observation reads coalesce, and the camera table (196 KB in f32)
+//     stays in L1 / L2 for the gathers;
+//   * a row runs the residual on Dual<T, 0>, the values without a tangent
+//     (the other variants' arithmetic), then the Huber cost;
+//   * each thread sums its rows in order, the block by a warp-shuffle tree
+//     and then the warps in order; the block's partial goes to scratch, and
+//     the block that takes the last ticket (the other variants' counter)
+//     adds the partials in block order, its threads over strided slices,
+//     then a warp tree and the warps in order.
+//
 // No atomics on values: the result is the same from run to run.  No
 // fast-math.  The kernel allocates nothing.
 
@@ -118,14 +148,17 @@ constexpr int kFull = 0;
 constexpr int kCams = 1;
 constexpr int kLines = 2;
 constexpr int kLm = 3;
+constexpr int kCost = 4;
 constexpr int kCamCols = 43;   // Hcc (36) | gc (6) | cost
 constexpr int kLineCols = 21;  // Hll (16) | gl (4) | cost
 constexpr int kPairCols = 24;  // W
 
+// N = 0 carries the value alone (the cost variant); its one slot of d is
+// never touched
 template <typename T, int N>
 struct Dual {
   T v;
-  T d[N];
+  T d[N > 0 ? N : 1];
 
   __device__ __forceinline__ static Dual cst(T c) {
     Dual r;
@@ -859,6 +892,80 @@ __global__ void __launch_bounds__(kBlock) lm_cams_kernel(Args<T> a) {
 
 int lm_row_blocks(int O) { return (O + kBlock - 1) / kBlock; }
 
+// ---------------------------------------------------------------------------
+// cost: the robust cost alone over the line plan's kept rows (see the header)
+// ---------------------------------------------------------------------------
+
+// the cost grid's most blocks: one wave in float32 on the H100's 132 SMs
+// (46 registers a thread, 10 blocks an SM), and few partials for the last
+// block to add
+constexpr int kCostBlocks = 1024;
+
+int cost_blocks(int O) {
+  const int b = lm_row_blocks(O);
+  return b < 1 ? 1 : (b < kCostBlocks ? b : kCostBlocks);
+}
+
+// Adds the kBlock threads' v in a fixed order (a warp tree, then the warps
+// in order); thread 0 returns the sum.  s_part holds kWarps values.
+template <typename T>
+__device__ __forceinline__ T block_sum(T v, T* s_part) {
+  const int t = threadIdx.x;
+  v = warp_sum(v);
+  if ((t & 31) == 0) s_part[t >> 5] = v;
+  __syncthreads();
+  T s = s_part[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) s += s_part[w];
+  return s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock) cost_kernel(Args<T> a) {
+  __shared__ T s_part[kWarps];
+  __shared__ int s_last;
+  const int t = threadIdx.x;
+  const int nb = gridDim.x;
+  const long long kept = a.line_off[a.L];
+  const long long chunk = (kept + nb - 1) / nb;
+  const long long lo = blockIdx.x * chunk;
+  const long long hi = lo + chunk < kept ? lo + chunk : kept;
+  T acc = T(0);
+  for (long long i = lo + t; i < hi; i += kBlock) {
+    const int o = a.line_perm[i];
+    const int c = a.oc[o];
+    const int l = a.ol[o];
+    if (row_valid(c, l, a.wv[o] > T(0), a.C, a.L)) {
+      T ob[8];
+      load_obs(a.obs, o, ob);
+      Dual<T, 0> r[4];
+      row_residual<T, 0, 0>(a.cam, a.line, c, l, ob, a.baseline, r);
+      const T s = r[0].v * r[0].v + r[1].v * r[1].v + r[2].v * r[2].v +
+                  r[3].v * r[3].v;
+      T w_r, cost_i;
+      huber_weights(s, a.huber, &w_r, &cost_i);
+      acc += cost_i;
+    }
+  }
+  const T part = block_sum(acc, s_part);
+  if (t == 0) {
+    a.partial[blockIdx.x] = part;
+    __threadfence();
+    s_last = atomicAdd(a.tickets, 1) == nb - 1;
+  }
+  __syncthreads();  // s_part read, s_last written
+  if (!s_last) return;
+  __threadfence();
+  const volatile T* partial = a.partial;
+  T s = T(0);
+  for (int b = t; b < nb; b += kBlock) s += partial[b];
+  s = block_sum(s, s_part);
+  if (t == 0) {
+    a.cost[0] = s;
+    *a.tickets = 0;
+  }
+}
+
 template <typename T>
 int launch(int variant, const void* cam, const void* line, const void* obs,
            const void* oc, const void* ol, const void* wv, const void* cfree,
@@ -887,6 +994,13 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
   a.line_off = static_cast<const int*>(line_off);
   a.tickets = static_cast<int*>(tickets);
   T* o = static_cast<T*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == kCost) {
+    a.cost = o;
+    a.partial = o + 1;
+    cost_kernel<T><<<cost_blocks(O), kBlock, 0, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (variant == kLm) {  // first: its rows start on 32-byte sectors
     a.Wb = o;
     o += static_cast<size_t>(O) * kPairCols;
@@ -916,7 +1030,6 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
     o += C;
   }
   if (variant == kLm) a.line_part = o;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == kFull)
     fused_eval_kernel<T, kFull><<<C + L, kBlock, 0, s>>>(a);
   else if (variant == kCams)
@@ -938,8 +1051,8 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
 
 }  // namespace
 
-// variant: 0 full, 1 cams, 2 lines, 3 lm.  Output buffer, every element
-// written:
+// variant: 0 full, 1 cams, 2 lines, 3 lm, 4 cost.  Output buffer, every
+// element written:
 //   full   cost (1) | Hcc (C*36) | gc (C*6) | Hll (L*16) | gl (L*4) |
 //          W (C*L*24) | partial costs (C)
 //   cams   cost (1) | Hcc (C*36) | gc (C*6) | partial costs (C)
@@ -947,6 +1060,8 @@ int launch(int variant, const void* cam, const void* line, const void* obs,
 //   lm     Wb (O*24) | cost (1) | Hcc (C*36) | gc (C*6) | Hll (L*16) |
 //          gl (L*4) | partial costs (C) | line partials
 //          (fused_eval_scratch: 2 x 14 a row block)
+//   cost   cost (1) | block partials (fused_eval_scratch: one a block)
+// cost reads cam, line, obs, oc, ol, wv and the line plan, nothing else.
 // tickets: one int, 0 before the launch and 0 again after it, used by no
 // other launch in flight.  C, L >= 1.
 extern "C" int fused_eval_f32(int variant, const void* cam, const void* line,
@@ -976,9 +1091,10 @@ extern "C" int fused_eval_f64(int variant, const void* cam, const void* line,
 }
 
 // Elements of the buffer past its outputs and partial costs: lm's line
-// partials, none for the other variants.
+// partials, cost's block partials, none for the other variants.
 extern "C" long long fused_eval_scratch(int variant, int C, int L, int O) {
   (void)C;
   (void)L;
+  if (variant == kCost) return cost_blocks(O);
   return variant == kLm ? 2LL * kLmLineCols * lm_row_blocks(O) : 0;
 }

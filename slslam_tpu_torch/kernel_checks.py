@@ -17,7 +17,8 @@ max|twin|), per output:
 * K1 (deterministic, fixed-order sums): 1e-12 in float64, 1e-5 in float32;
 * K2, every variant (deterministic, fixed-order sums; dual-number vs
   torch.func derivatives): 1e-10 in float64, 1e-5 in float32; ``lm``'s
-  Wb rows that its plan drops must be exactly zero;
+  Wb rows that its plan drops must be exactly zero, and NaNs in the rows
+  that ``cost``'s plan drops must leave its cost as it was, bit for bit;
 * K3 and K4 (deterministic, fixed-order sums of the same products): 1e-12
   in float64, of the largest sum of absolute terms an output adds; in
   float32 held to the float64 twin, at most twice as far as the float32
@@ -415,6 +416,54 @@ def check_k2(dtype, device, variant="full", shape=None, pad_frac=0.008):
             raise AssertionError(f"fused_eval/lm {dtype}: a dropped row of "
                                  "Wb is not exactly zero")
     return errs
+
+
+# (C, L, O) of K2 ``cost`` on the paths, and the share of padding rows at
+# each: the refine's trial points, and the large map's (``survey.solve``)
+K2_COST_SHAPES = {"refine": K2_SHAPES["lm"], "map": (MAP_C, MAP_L, MAP_O)}
+K2_COST_PADS = {"refine": 0.008, "map": MAP_PAD}
+# the shapes each K2 launch (kernels.K2_KERNELS) is checked at by default
+K2_CHECKED_SHAPES = {**{v: (s,) for v, s in K2_SHAPES.items()},
+                     "cost": tuple(K2_COST_SHAPES.values())}
+
+
+def k2_cost_case(dtype, device, shape=K2_SHAPES["lm"], pad_frac=0.008):
+    """Arguments of fused_cost at ``shape`` (C, L, O): k2_lm_case's
+    line-major problem with ``pad_frac`` padding, and the solve's plan
+    (``ba_plan(..., "lm")``)."""
+    args, plan = k2_variant_case("lm", dtype, device, shape, pad_frac)
+    del args["cam_free_f"], args["line_free_f"]
+    return args, plan
+
+
+def check_k2_cost(dtype, device, shape=K2_SHAPES["lm"], pad_frac=0.008):
+    """K2 ``cost`` on ``device`` against its twin on the same device,
+    launched twice with the solve's plan at ``shape`` (k2_cost_case), then
+    again with NaNs in the observations of every row the plan drops.
+    Returns (normalized error, max abs error); raises past K2_TOL, if the
+    two launches differ in any bit, or if the NaNs move the cost or the
+    twin's."""
+    args, plan = k2_cost_case(dtype, device, shape, pad_frac)
+    got = kernels.fused_cost(**args, plan=plan)
+    if not torch.equal(got, kernels.fused_cost(**args, plan=plan)):
+        raise AssertionError(f"fused_eval/cost {dtype}: two launches on the "
+                             "same input differ")
+    ref = kernels.fused_cost_twin(**args)
+    err = errors(got, ref)
+    if not err[0] <= K2_TOL[dtype]:
+        raise AssertionError(f"fused_eval/cost {dtype}: error {err[0]} > "
+                             f"{K2_TOL[dtype]}")
+    dropped = dropped_rows(plan.line)
+    if dropped.numel() == 0:
+        raise AssertionError("fused_eval/cost: the case drops no row")
+    obs = args["obs"].clone()
+    obs[dropped] = float("nan")
+    nan_args = dict(args, obs=obs)
+    if not (torch.equal(kernels.fused_cost(**nan_args, plan=plan), got)
+            and torch.equal(kernels.fused_cost_twin(**nan_args), ref)):
+        raise AssertionError(f"fused_eval/cost {dtype}: NaNs in the dropped "
+                             "rows moved the cost")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -911,29 +960,69 @@ def _moved(a, rng, scale):
 
 
 @contextlib.contextmanager
-def reversed_twin_sums():
+def reordered_twin_sums(seed=None):
     """The kernels' plain twins with every sum over rows (K1's and K2's
-    ``index_add_`` reductions) taken in reversed row order: the same
-    function with its float additions in another order, a witness of how
-    far rounding alone moves a solver."""
+    ``index_add_`` reductions, and the sum of K2 ``cost``'s kept rows)
+    taken in another row order: reversed, or with ``seed`` an order drawn
+    at random for each sum.  The same function with its float additions
+    in another order, as the card's kernels take them: a witness of how far
+    rounding alone moves a solver."""
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+
+    def order(n, device):
+        if gen is None:
+            return torch.arange(n - 1, -1, -1, device=device)
+        return torch.randperm(n, generator=gen).to(device)
+
     def acc(shape, index, vals):
+        o = order(index.shape[0], index.device)
         return torch.zeros(shape, dtype=vals.dtype,
-                           device=vals.device).index_add_(
-            0, index.flip(0), vals.flip(0))
+                           device=vals.device).index_add_(0, index[o],
+                                                          vals[o])
 
     def seg_sum(values, idx, num_segments):
         keep = (idx >= 0) & (idx < num_segments)
+        idx, values = idx[keep].long(), values[keep]
+        o = order(idx.shape[0], idx.device)
         out = torch.zeros((num_segments,) + values.shape[1:],
                           dtype=values.dtype, device=values.device)
-        return out.index_add_(0, idx[keep].long().flip(0),
-                              values[keep].flip(0))
+        return out.index_add_(0, idx[o], values[o])
 
-    saved = kernels._acc, kernels.segment_sum_twin
-    kernels._acc, kernels.segment_sum_twin = acc, seg_sum
+    def total(vals):
+        return torch.sum(vals[order(vals.shape[0], vals.device)])
+
+    saved = kernels._acc, kernels.segment_sum_twin, kernels._total
+    kernels._acc, kernels.segment_sum_twin, kernels._total = (acc, seg_sum,
+                                                              total)
     try:
         yield
     finally:
-        kernels._acc, kernels.segment_sum_twin = saved
+        kernels._acc, kernels.segment_sum_twin, kernels._total = saved
+
+
+def reversed_twin_sums():
+    """reordered_twin_sums in reversed row order."""
+    return reordered_twin_sums()
+
+
+# the random orders of the twins' sums that order_draws takes beside the
+# reversed one: 19 draws in all, so that a result of rounding alone lies
+# beyond every draw with a chance of 1 in 20
+ORDER_SEEDS = tuple(range(18))
+
+
+def order_draws(run, seeds=ORDER_SEEDS):
+    """``run()`` on the CPU with the twins' sums reversed, then in the
+    random order of each of ``seeds`` (reordered_twin_sums): a result of
+    rounding alone for each draw.  Where a solver is chaotic (one that
+    stops at its cap short of convergence), one draw says little: these
+    spread over branches that lie orders of magnitude apart."""
+    with reversed_twin_sums():
+        draws = [run()]
+    for seed in seeds:
+        with reordered_twin_sums(seed):
+            draws.append(run())
+    return draws
 
 
 # ---------------------------------------------------------------------------
@@ -1078,6 +1167,15 @@ def pcg_work(case, plan, iterations):
 def k2_row_ops(variant):
     """Operations per valid row of K2's ``variant`` (_K2_OPS)."""
     return sum(_K2_OPS[k] for k in _K2_PARTS[variant])
+
+
+def cost_work(C, L, n, e):
+    """(bytes, operations) of K2 ``cost`` over ``n`` valid rows with
+    ``e``-byte floats: the parameters, each valid row's observation,
+    camera index and weight read once, one value written; the residual and
+    the Huber cost a row (_K2_OPS)."""
+    return (C * 6 * e + L * 4 * e + n * (8 * e + 4 + e) + e,
+            n * (_K2_OPS["residual"] + _K2_OPS["huber"]))
 
 
 def k2_work(args, variant, plan):

@@ -12,7 +12,8 @@ Source: ``csrc/segment_sum.cu``.
 
 K2 ``fused_eval`` — the BA evaluate in one launch (``lm``: two): gather,
 residual, forward-mode Jacobian columns, Huber weights, NaN-proof masks,
-and the reductions, in four variants (``VARIANTS``):
+and the reductions, in four variants (``VARIANTS``) and a fifth,
+``fused_cost``:
 
 * ``full``: cost, Hcc, Hll, gc, gl and the cam-line coupling W (the window
   BA, ``schur_ba._eval_system``);
@@ -23,13 +24,19 @@ and the reductions, in four variants (``VARIANTS``):
 * ``lm``: cost, Hcc, Hll, gc, gl and the cam-line coupling per row, Wb
   (O,6,4) — the global refine's line-major evaluate
   (``schur_cg._eval_system_lm``): a row pass over the line plan (Wb,
-  Hll, gl; zeros on the dropped rows), then a camera pass (Hcc, gc, cost).
+  Hll, gl; zeros on the dropped rows), then a camera pass (Hcc, gc, cost);
+* ``cost`` (``fused_cost``): the robust cost alone, residual values and
+  Huber cost over the line plan's kept rows, one launch — the global BA's
+  score of its start and of each LM trial point (``schur_cg._cost_lm``).
 
-Replaces ``fused_eval_pallas`` with its two kernels
-(pallas_kernels.py:278-428).  Source: ``csrc/fused_eval.cu``.  K2 decodes
-orth lines; the aid and asd parameterizations go through it by the chain
-rule (``fused_eval_chart``): each line is decoded to orth, K2 evaluates,
-and the line blocks are mapped by M = d orth / d p, one 4x4 per line.
+The first four replace ``fused_eval_pallas`` with its two kernels
+(pallas_kernels.py:278-428); ``cost`` replaces the XLA code of the JAX
+package's ``cost_only`` (slslam_tpu/ops/schur_cg.py:394-406), which had no
+Pallas kernel.  Source: ``csrc/fused_eval.cu``.  K2 decodes orth lines;
+the aid and asd parameterizations go through it by the chain rule
+(``fused_eval_chart``): each line is decoded to orth, K2 evaluates, and
+the line blocks are mapped by M = d orth / d p, one 4x4 per line
+(``cost`` needs the decode alone).
 
 K3 ``schur_matvec`` and ``schur_pcg``, K4 ``schur_jacobi`` — the global
 refine's PCG on the reduced camera system S = Hcc_d - W Binv W^T over the
@@ -77,7 +84,8 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from .. import geometry as geo
-from .residuals import (lba_residual_jac_batch, lba_residual_jac_cam_batch,
+from .residuals import (lba_residual_batch, lba_residual_jac_batch,
+                        lba_residual_jac_cam_batch,
                         lba_residual_jac_line_batch, robust_weights)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,6 +95,10 @@ SOURCES = ("segment_sum.cu", "fused_eval.cu", "schur_cg.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 VARIANTS = ("full", "cams", "lines", "lm")
+# every K2 launch by name: fused_eval's variants, then fused_cost's
+# ``cost`` (csrc/fused_eval.cu kCost); the index is the kernel's variant
+K2_KERNELS = (*VARIANTS, "cost")
+COST_VARIANT = K2_KERNELS.index("cost")
 
 # launches of each kernel since the last reset_launch_counts(), and the
 # same launches by shape: (kernel, shape) -> launches, the shape (O, P) for
@@ -95,7 +107,7 @@ SCHUR_KERNELS = ("schur_matvec/line", "schur_matvec/cam", "schur_pcg",
                  "schur_jacobi")
 launch_counts: Dict[str, int] = {
     "segment_plan": 0, "segment_sum": 0,
-    **{f"fused_eval/{v}": 0 for v in VARIANTS},
+    **{f"fused_eval/{v}": 0 for v in K2_KERNELS},
     **dict.fromkeys(SCHUR_KERNELS, 0)}
 launch_shapes: Dict[tuple, int] = {}
 # wall seconds of the nvcc builds in this process (None until built)
@@ -443,6 +455,11 @@ def _acc(shape, index, vals):
                        device=vals.device).index_add_(0, index, vals)
 
 
+def _total(vals):
+    """The sum of ``vals`` (N,), ``fused_cost_twin``'s one reduction."""
+    return torch.sum(vals)
+
+
 def fused_eval_twin(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
                     cam_free_f, line_free_f, baseline, huber_delta,
                     robust=True, line_param="orth", variant="full"):
@@ -631,6 +648,30 @@ def fused_eval_numel(variant, C, L, O):
             + lib.fused_eval_scratch(VARIANTS.index(variant), C, L, O))
 
 
+def _check_k2_args(name, cam_wt, line_orth, obs, obs_cam, obs_line,
+                   w_valid, **extra):
+    """Raises unless a K2 launch can take its arguments: the parameters,
+    the rows and ``extra`` ({name: (tensor, shape)}) of their shapes, int32
+    indices and the rest of ``cam_wt``'s dtype, all contiguous on its
+    device."""
+    C, L, O = cam_wt.shape[0], line_orth.shape[0], obs.shape[0]
+    if C < 1 or L < 1:
+        raise ValueError(f"{name}: needs at least one camera and line")
+    args = {"cam_wt": (cam_wt, (C, 6)), "line_orth": (line_orth, (L, 4)),
+            "obs": (obs, (O, 8)), "obs_cam": (obs_cam, (O,)),
+            "obs_line": (obs_line, (O,)), "w_valid": (w_valid, (O,)),
+            **extra}
+    _suffix(cam_wt.dtype)
+    for k, (t, shape) in args.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {k} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        want = torch.int32 if k in ("obs_cam", "obs_line") else cam_wt.dtype
+        if t.dtype != want:
+            raise TypeError(f"{name}: {k} is {t.dtype}, expected {want}")
+    _check_cuda(name, cam_wt.device, **{k: t for k, (t, _) in args.items()})
+
+
 def _fused_eval_orth(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
                      cam_free_f, line_free_f, baseline, huber_delta, robust,
                      line_param, variant, plan):
@@ -638,24 +679,14 @@ def _fused_eval_orth(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     if _device_kind("fused_eval", cam_wt) != "cuda" or line_param != "orth":
         raise ValueError("K2 takes CUDA tensors of orth lines")
     C, L, O = cam_wt.shape[0], line_orth.shape[0], obs.shape[0]
-    if C < 1 or L < 1:
-        raise ValueError("fused_eval: needs at least one camera and line")
-    args = {"cam_wt": (cam_wt, (C, 6)), "line_orth": (line_orth, (L, 4)),
-            "obs": (obs, (O, 8)), "obs_cam": (obs_cam, (O,)),
-            "obs_line": (obs_line, (O,)), "w_valid": (w_valid, (O,))}
+    extra = {}
     if variant != "lines":
-        args["cam_free_f"] = (cam_free_f, (C,))
+        extra["cam_free_f"] = (cam_free_f, (C,))
     if variant != "cams":
-        args["line_free_f"] = (line_free_f, (L,))
-    for k, (t, shape) in args.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"fused_eval: {k} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-        want = torch.int32 if k in ("obs_cam", "obs_line") else cam_wt.dtype
-        if t.dtype != want:
-            raise TypeError(f"fused_eval: {k} is {t.dtype}, expected {want}")
+        extra["line_free_f"] = (line_free_f, (L,))
+    _check_k2_args("fused_eval", cam_wt, line_orth, obs, obs_cam, obs_line,
+                   w_valid, **extra)
     dev = cam_wt.device
-    _check_cuda("fused_eval", dev, **{k: t for k, (t, _) in args.items()})
     if plan is None:
         plan = ba_plan(obs_cam, obs_line, w_valid, C, L, variant)
     rows, stride = (plan.pair, L) if variant == "full" else (plan.cam, 1)
@@ -694,6 +725,67 @@ def _fused_eval_orth(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
     names = {"lines": ("Hll", "gl", "cost_l"), "cams": ("cost", "Hcc", "gc")
              }.get(variant, ("cost", "Hcc", "Hll", "gc", "gl", "W"))
     return tuple(parts[name] for name in names)
+
+
+def fused_cost_twin(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid,
+                    baseline, huber_delta, robust=True, line_param="orth"):
+    """Plain version of K2 ``cost``: the residuals of the kept rows (w_valid
+    > 0, both indices in range) and their robust cost, summed; the other
+    rows are never read (slslam_tpu/ops/schur_cg.py:394-406 without the
+    priors)."""
+    C, L = cam_wt.shape[0], line_orth.shape[0]
+    keep = ((w_valid > 0) & (obs_cam >= 0) & (obs_cam < C) & (obs_line >= 0)
+            & (obs_line < L))
+    r = lba_residual_batch(cam_wt[obs_cam[keep].long()],
+                           line_orth[obs_line[keep].long()], obs[keep],
+                           baseline, line_param=line_param)
+    _, cost_i = robust_weights(r, huber_delta, robust)
+    return _total(cost_i)
+
+
+def fused_cost(cam_wt, line_orth, obs, obs_cam, obs_line, w_valid, baseline,
+               huber_delta, robust=True, line_param="orth", plan=None):
+    """The robust cost alone, a 0-d tensor: (C,6),(L,4),(O,8), int32
+    indices, (O,) validity weights; a row counts where w_valid > 0 and both
+    indices are in range.  ``plan``: a ``ba_plan`` of these rows with a line
+    plan (``lm``'s or ``lines``'), built once per solve; without one the
+    wrapper builds the line plan first (one more launch).
+
+    CPU tensors take the twin; CUDA tensors launch K2 ``cost`` once (Huber
+    or plain least squares), deterministic: orth lines directly, aid and
+    asd lines decoded to orth first."""
+    if _device_kind("fused_cost", cam_wt) == "cpu":
+        return fused_cost_twin(cam_wt, line_orth, obs, obs_cam, obs_line,
+                               w_valid, baseline, huber_delta, robust,
+                               line_param)
+    if line_param != "orth":
+        line_orth = geo.av_to_orth(
+            geo.LINE_DECODERS[line_param](line_orth)).contiguous()
+    _check_k2_args("fused_cost", cam_wt, line_orth, obs, obs_cam, obs_line,
+                   w_valid)
+    C, L, O = cam_wt.shape[0], line_orth.shape[0], obs.shape[0]
+    dev = cam_wt.device
+    if plan is None:
+        plan = ba_plan(obs_cam, obs_line, w_valid, C, L, "lines")
+    if plan.line is None:
+        raise ValueError("fused_cost: the plan lacks a line plan")
+    _check_plan("fused_cost", plan.line, O, L, dev)
+    lib = load_library()["fused_eval"]
+    buf = torch.empty(1 + lib.fused_eval_scratch(COST_VARIANT, C, L, O),
+                      dtype=cam_wt.dtype, device=dev)
+    huber = float(huber_delta) if robust else -1.0
+    fn = getattr(lib, f"fused_eval_{_suffix(cam_wt.dtype)}")
+    stream = torch.cuda.current_stream(dev)
+    ticket = _ticket_for(dev, stream)
+    err = fn(COST_VARIANT, cam_wt.data_ptr(), line_orth.data_ptr(),
+             obs.data_ptr(), obs_cam.data_ptr(), obs_line.data_ptr(),
+             w_valid.data_ptr(), None, None, float(baseline), huber, C, L, O,
+             None, None, 1, plan.line.perm.data_ptr(),
+             plan.line.offsets.data_ptr(), buf.data_ptr(), ticket.data_ptr(),
+             ctypes.c_void_p(stream.cuda_stream))
+    _raise_on("fused_cost", err)
+    _count("fused_eval/cost", (C, L, O))
+    return buf[0]
 
 
 # ---------------------------------------------------------------------------

@@ -15,13 +15,15 @@ design; in short:
   stops by Ceres's eta forcing (||r|| <= eta ||rhs||).
 
 On Hopper the evaluate is K2's ``lm`` variant (``ops/kernels.py``), one
-launch per LM iteration.  The PCG's work over rows is K3 and K4 over the
-solve's camera and line plans, built once per solve (``ba_plan(...,
-"lm")``): the right-hand side is one K3 camera pass, the SCHUR_JACOBI
-blocks one K4 launch, the whole PCG loop one K3 ``schur_pcg`` launch (its
-matvecs, preconditioner, dot products and stop test on the device) and
-the back-substitution's coupling one K3 line pass, each reading only the
-valid rows.  Where JAX gathers through the (C, kC) camera permutation,
+launch per LM iteration, and the trial cost, the robust cost alone at the
+start and at each LM trial point, is K2's ``cost`` variant, one launch
+over the line plan's valid rows.  The PCG's work over rows is K3 and K4
+over the solve's camera and line plans, built once per solve
+(``ba_plan(..., "lm")``): the right-hand side is one K3 camera pass, the
+SCHUR_JACOBI blocks one K4 launch, the whole PCG loop one K3
+``schur_pcg`` launch (its matvecs, preconditioner, dot products and stop
+test on the device) and the back-substitution's coupling one K3 line
+pass, each reading only the valid rows.  Where JAX gathers through the (C, kC) camera permutation,
 this port reads the camera plan, so ``cam_perm`` is not an argument of
 the solver.  The LM loop is a Python loop that reads its condition from
 the device once per LM iteration; a damped step reads nothing, and its
@@ -61,9 +63,8 @@ import numpy as np
 import torch
 
 from ..utils import trace
-from .kernels import (ba_plan, fused_eval, schur_jacobi, schur_matvec_cam,
-                      schur_matvec_line, schur_pcg)
-from .residuals import lba_residual_batch, robust_weights
+from .kernels import (ba_plan, fused_cost, fused_eval, schur_jacobi,
+                      schur_matvec_cam, schur_matvec_line, schur_pcg)
 from .schur_ba import (_INIT_RADIUS, _MAX_DIAG, _MIN_DIAG,
                        _MIN_RELATIVE_DECREASE, _inv4_equilibrated,
                        _tolerances, make_prior_edges, prior_cost,
@@ -188,17 +189,20 @@ def _eval_system_lm(cam_wt, line_orth, obs, obs_cam, w_valid, cam_free_f,
 
 
 def _cost_lm(cam_wt, line_orth, obs, obs_cam, w_valid, baseline,
-             huber_delta, robust, line_param="orth"):
+             huber_delta, robust, line_param="orth", plan=None):
     """The robust cost alone, for LM's trial points (schur_cg.py:394-406
-    without the priors): residuals only, no Jacobians."""
+    without the priors): K2 ``cost`` over the valid rows, residuals only.
+    ``plan``: ``lm_plan(obs_cam, w_valid, C)``, the solve's; without one
+    the line plan is built here.  The line plan's key is each flat row's
+    line (L on the rows it drops), so with a plan no row index is made."""
     L, kL = obs.shape[:2]
-    r = lba_residual_batch(cam_wt[obs_cam.reshape(-1).long()],
-                           line_orth.repeat_interleave(kL, dim=0),
-                           obs.reshape(L * kL, 8), baseline,
-                           line_param=line_param)
-    _, cost_i = robust_weights(r, huber_delta, robust)
-    return torch.sum(torch.where(w_valid.reshape(-1) > 0, cost_i,
-                                 torch.zeros_like(cost_i)))
+    obs_line = (_line_rows(L, kL, obs.device) if plan is None
+                else plan.line.key)
+    return fused_cost(cam_wt.contiguous(), line_orth.contiguous(),
+                      obs.reshape(L * kL, 8),
+                      obs_cam.reshape(-1).to(torch.int32).contiguous(),
+                      obs_line, w_valid.reshape(-1), baseline, huber_delta,
+                      robust=robust, line_param=line_param, plan=plan)
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +345,7 @@ def global_ba_cg(cam_wt, line_orth, obs, obs_cam, obs_valid, cam_free,
 
             def cost_only(cw, lo):
                 cost = _cost_lm(cw, lo, obs, obs_cam, w_valid, baseline,
-                                huber_delta, robust, line_param)
+                                huber_delta, robust, line_param, plan)
                 if prior is not None:
                     cost = cost + prior_cost(prior, cw)
                 return cost

@@ -122,3 +122,71 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         kernels.segment_sum(x, torch.zeros(4, dtype=torch.int32,
                                            device="meta"), 2)
+
+
+def test_cost_check_case_runs_on_cpu():
+    """K2 ``cost``'s check case is well-formed: on the CPU both sides are
+    the twin (the error is exactly zero), the case drops rows, and NaNs in
+    them leave the cost as it was."""
+    assert kernel_checks.check_k2_cost(torch.float64, "cpu") == (0.0, 0.0)
+
+
+def test_cost_work_is_the_benchmark_yardstick():
+    """kernel_checks.cost_work is the closed form that the benchmark froze
+    (benchmark/frozen/kernel_work.py), at the map's and the refine's rows."""
+    from benchmark.frozen import kernel_work as kw
+    for e in (4, 8):
+        assert kernel_checks.cost_work(8192, 109_147, 929_796, e) == \
+            kw.cost_work(8192, 109_147, 929_796, e)
+        assert kernel_checks.cost_work(400, 74, 29_363, e) == \
+            kw.cost_work(400, 74, 29_363, e)
+
+
+def _bad_cost_args(case, args, plan):
+    """fused_cost's arguments and plan, broken as ``case`` says."""
+    args = dict(args)
+    if case == "obs shape":
+        args["obs"] = args["obs"][:, :7]
+    elif case == "camera shape":
+        args["cam_wt"] = args["cam_wt"][:, :5]
+    elif case == "index dtype":
+        args["obs_cam"] = args["obs_cam"].long()
+    elif case == "weight dtype":
+        args["w_valid"] = args["w_valid"].float()
+    elif case == "not contiguous":
+        args["obs"] = args["obs"].t().contiguous().t()
+    elif case == "plan of the cameras":
+        plan = plan._replace(line=plan.cam)
+    elif case == "no line plan":
+        plan = plan._replace(line=None)
+    return args, plan
+
+
+COST_BAD = {"obs shape": ValueError, "camera shape": ValueError,
+            "index dtype": TypeError, "weight dtype": TypeError,
+            "not contiguous": ValueError, "plan of the cameras": ValueError,
+            "no line plan": ValueError}
+
+
+@pytest.mark.parametrize("case", [*COST_BAD, "sound"])
+def test_fused_cost_checks_before_a_launch(monkeypatch, case):
+    """fused_cost's card path refuses bad shapes, dtypes, layouts and plans
+    before it reaches the kernel library, and counts no launch; sound
+    arguments reach it.  (The tensors stay on the CPU: the card path is
+    forced and the library replaced by a stub that records the call.)"""
+    args, plan = kernel_checks.k2_cost_case(torch.float64, "cpu",
+                                            shape=(40, 12, 12 * 16))
+    args, plan = _bad_cost_args(case, args, plan)
+    monkeypatch.setattr(kernels, "_device_kind", lambda name, t: "cuda")
+
+    class Reached(Exception):
+        pass
+
+    def library():
+        raise Reached
+
+    monkeypatch.setattr(kernels, "load_library", library)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(COST_BAD.get(case, Reached)):
+        kernels.fused_cost(**args, plan=plan)
+    assert kernels.launch_counts == before

@@ -95,6 +95,77 @@ def test_eval_system_lm_matches_jax(problem):
         assert err <= 1e-10, (name, err)
 
 
+def _jax_cost_only(cam, orth, p, obs, obs_cam, line_param="orth"):
+    """The arithmetic of JAX's ``cost_only`` (slslam_tpu/ops/schur_cg.py:
+    394-401, no priors) on ``p``'s validity with ``obs`` and ``obs_cam``
+    in its place."""
+    L, kL = p.obs_valid.shape
+    r = jcg.lba_residual_batch(jnp.asarray(cam)[jnp.asarray(obs_cam)
+                                                .reshape(-1)],
+                               jnp.repeat(jnp.asarray(orth), kL, axis=0),
+                               jnp.asarray(obs).reshape(-1, 8), BL,
+                               line_param=line_param)
+    _, cost_i = jba._robust_weights(r, HD, True)
+    return float(jnp.sum(jnp.where(jnp.asarray(p.obs_valid).reshape(-1),
+                                   cost_i, 0.0)))
+
+
+def _garbage_padding(p, C):
+    """``p``'s observations with NaNs, and its camera indices with
+    indices out of range, on every padded row."""
+    obs, oc = p.obs.copy(), p.obs_cam.copy()
+    pad = ~p.obs_valid
+    obs[pad] = np.nan
+    oc[pad] = np.where(np.arange(int(pad.sum())) % 2, C + 5, -3)
+    return obs, oc
+
+
+@pytest.mark.parametrize("with_plan", [True, False],
+                         ids=["solve's plan", "no plan (the tool)"])
+def test_cost_lm_matches_jax_cost_only(problem, with_plan):
+    """The trial cost's CPU twin (K2 ``cost``'s) against JAX's cost_only
+    in float64 at the perturbed start, with NaNs and out-of-range cameras
+    in the padded rows (JAX masks them; the twin never reads them), with
+    the solve's plan and without one (tools/torch_large_map_bench.py's
+    call): within 1e-12 relative, and no launch."""
+    cam0, orth0, _, _, _, _, p = problem
+    C = len(cam0)
+    obs, oc = _garbage_padding(p, C)
+    ref = _jax_cost_only(cam0, orth0, p, obs, oc)
+    wv = _t(p.obs_valid.astype(np.float64))
+    plan = tcg.lm_plan(_t(oc), wv, C) if with_plan else None
+    before = dict(kernels.launch_counts)
+    got = tcg._cost_lm(_t(cam0), _t(orth0), _t(obs), _t(oc), wv, BL, HD,
+                       True, plan=plan)
+    assert kernels.launch_counts == before
+    assert got.shape == () and np.isfinite(float(got))
+    np.testing.assert_allclose(float(got), ref, rtol=1e-12)
+
+
+def test_cost_lm_aid_lines_decode_to_the_orth_cost(problem):
+    """aid lines: the twin's cost (residuals in aid) equals the cost of
+    the same lines in orth, and the card's route (decode to orth, then the
+    orth cost) gives the same; both against JAX's cost_only in aid."""
+    from slslam_tpu_torch import geometry as geo
+    cam0, orth0, _, _, _, _, p = problem
+    C, L = len(cam0), len(orth0)
+    aid = geo.LINE_ENCODERS["aid"](geo.orth_to_av(_t(orth0)))
+    wv = _t(p.obs_valid.astype(np.float64))
+    args = (_t(p.obs), _t(p.obs_cam), wv, BL, HD, True)
+    orth_cost = float(tcg._cost_lm(_t(cam0), _t(orth0), *args))
+    aid_cost = float(tcg._cost_lm(_t(cam0), aid, *args, line_param="aid"))
+    decoded = geo.av_to_orth(geo.LINE_DECODERS["aid"](aid))
+    rows = dict(obs=_t(p.obs).reshape(-1, 8),
+                obs_cam=_t(p.obs_cam).reshape(-1).to(torch.int32),
+                obs_line=tcg._line_rows(L, p.kL, "cpu"),
+                w_valid=wv.reshape(-1), baseline=BL, huber_delta=HD)
+    card_route = float(kernels.fused_cost_twin(_t(cam0), decoded, **rows))
+    jax_aid = _jax_cost_only(cam0, aid.numpy(), p, p.obs, p.obs_cam, "aid")
+    for got in (aid_cost, card_route, jax_aid):
+        np.testing.assert_allclose(got, orth_cost, rtol=1e-10)
+    np.testing.assert_allclose(aid_cost, jax_aid, rtol=1e-12)
+
+
 def test_solve_step_cg_matches_jax(problem):
     """One damped PCG step on the same blocks: the same PCG iteration
     count and the same step (the 6x6 preconditioner blocks go through the

@@ -61,6 +61,7 @@ KERNEL_NAMES = {"segment_plan": ("plan_segments_kernel", "plan_small_kernel",
                                  "plan_scatter_kernel", "plan_offsets_kernel"),
                 "segment_sum": ("seg_sum_kernel",),
                 "fused_eval/lm": ("lm_rows_kernel", "lm_cams_kernel"),
+                "fused_eval/cost": ("cost_kernel",),
                 "schur_matvec/line": ("schur_line_kernel",),
                 "schur_matvec/cam": ("schur_cam_kernel",),
                 "schur_pcg": ("schur_pcg_kernel",),
@@ -324,6 +325,9 @@ def kernel_bytes(t, launch_shapes):
             idx = (plan.cam.key if O == plan.cam.key.numel()
                    else torch.zeros(O, dtype=torch.int32))
             work = kc.k1_work(vals, idx, P)
+        elif name == "fused_eval/cost":
+            work = kc.cost_work(C, L, int(plan.line.offsets[-1]),
+                                t["cam_wt"].element_size())
         elif name.startswith("schur_"):
             # the camera pass's right-hand side launches read gc, not
             # Hcc_d and x: counted as matvecs, a few C x 36 floats more
